@@ -25,6 +25,11 @@ import logging
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where there is none")
+
+
 @pytest.fixture(autouse=True)
 def _restore_binder_logger_state():
     """Snapshot/restore handler, level, and propagate state for the

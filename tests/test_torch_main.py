@@ -1,0 +1,234 @@
+"""Entry-point parity and import isolation for ``binder_torch``.
+
+``python -m binder_torch.main`` and ``python -m binder_tpu.main`` boot
+from the shipped ``etc/config.json`` and must answer A, SRV and PTR the
+same way over UDP and TCP, and serve ``/status`` with the same keys; the
+port's ``/metrics`` scrape must pass ``tools.lint``'s validators.
+The processes seed their round-robin rng themselves, so for the
+rotating service names (``svc.foo.com`` A and
+``_http._tcp.svc.foo.com`` SRV) the comparison is the header plus the
+sorted record sets; every other reply is compared byte for byte.
+
+The port must never load the reference: a fresh interpreter that
+imports the port's entry points holds no ``binder_tpu``, ``jax`` or
+``__graft_entry__`` module afterwards, no file of the port (nor
+``chip_smoke.py``) imports one, only ``graft_entry`` imports torch, and
+a config that asks for a part not yet ported fails naming the port's
+module instead of running reference code.
+
+``chip_smoke.py`` must stop every process it starts, the resource
+tracker that spawning the collective's ranks brings up included.
+"""
+import ast
+import asyncio
+import dataclasses
+import glob
+import json
+import logging
+import os
+import re
+import socket
+import struct
+import subprocess
+import sys
+import time
+import urllib.request
+
+import pytest
+
+from binder_torch import main as port_main
+from binder_torch.config.options import ConfigError
+from binder_torch.dns import wire
+from tools import lint
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("binder_tpu", "jax", "jaxlib", "__graft_entry__")
+T = wire.Type
+ROTATING = {"svc.foo.com", "_http._tcp.svc.foo.com"}
+QUERIES = [("web.foo.com", T.A), ("svc.foo.com", T.A),
+           ("_http._tcp.svc.foo.com", T.SRV),
+           ("1.0.168.192.in-addr.arpa", T.PTR),
+           ("1.1.0.10.in-addr.arpa", T.PTR), ("nope.foo.com", T.A)]
+
+
+def boot(package):
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{package}.main", "-f", "etc/config.json",
+         "-p", "0"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    buf = b""
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        buf += line
+        m = re.search(rb"UDP DNS service started on [\d.]+:(\d+)", buf)
+        if m:
+            mport = re.search(rb"metrics server started on port (\d+)",
+                              buf)
+            return proc, int(m.group(1)), int(mport.group(1))
+    proc.kill()
+    raise AssertionError(f"{package}.main did not start: {buf[-2000:]!r}")
+
+
+def ask(port, name, qtype, transport):
+    q = wire.make_query(name, qtype, qid=0x5151).encode()
+    if transport == "udp":
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            s.settimeout(5)
+            s.sendto(q, ("127.0.0.1", port))
+            return s.recv(65535)
+    with socket.create_connection(("127.0.0.1", port), timeout=5) as s:
+        s.sendall(struct.pack(">H", len(q)) + q)
+        head = s.recv(2)
+        (n,) = struct.unpack(">H", head)
+        data = b""
+        while len(data) < n:
+            data += s.recv(n - len(data))
+        return data
+
+
+def rr_sets(data):
+    m = wire.Message.decode(data)
+
+    def rows(section):
+        return sorted(repr(dataclasses.astuple(r)) for r in section)
+    return (data[:12], [(q.name, q.qtype) for q in m.questions],
+            rows(m.answers), rows(m.authorities), rows(m.additionals))
+
+
+def key_tree(obj):
+    if isinstance(obj, dict):
+        return {k: key_tree(v) for k, v in obj.items()}
+    return type(obj).__name__ if obj is not None else None
+
+
+def test_main_answers_like_reference():
+    replies, status, scrape = {}, {}, {}
+    for package in ("binder_torch", "binder_tpu"):
+        proc, port, mport = boot(package)
+        try:
+            replies[package] = [ask(port, name, qtype, transport)
+                                for name, qtype in QUERIES
+                                for transport in ("udp", "tcp")]
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{mport}/status", timeout=5) as r:
+                status[package] = json.load(r)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{mport}/metrics", timeout=5) as r:
+                scrape[package] = r.read().decode()
+        finally:
+            proc.terminate()
+            proc.wait(timeout=10)
+            proc.stdout.close()
+    pairs = zip(replies["binder_torch"], replies["binder_tpu"])
+    for (name, qtype), got, want in zip(
+            [q for q in QUERIES for _ in (0, 1)], *zip(*pairs)):
+        if name in ROTATING:
+            assert rr_sets(got) == rr_sets(want), name
+        else:
+            assert got == want, name
+    web = wire.Message.decode(replies["binder_torch"][0])
+    assert [a.address for a in web.answers] == ["192.168.0.1"]
+    assert sorted(status["binder_torch"]) == sorted(status["binder_tpu"])
+    assert key_tree(status["binder_torch"]["store"]) == \
+        key_tree(status["binder_tpu"]["store"])
+    assert lint.validate_status_snapshot(status["binder_tpu"]) == []
+    assert lint.validate_status_snapshot(status["binder_torch"]) == []
+    assert lint.validate_exposition(scrape["binder_torch"]) == []
+    assert lint.validate_rrl_metrics(scrape["binder_torch"]) == []
+
+
+def test_fresh_interpreter_imports_no_reference():
+    probe = ("import sys, json; before = set(sys.modules); "
+             "import binder_torch.main, binder_torch.graft_entry; "
+             "print(json.dumps(sorted(set(sys.modules) - before)))")
+    bare = ("import sys, json; "
+            "print(json.dumps(sorted(sys.modules)))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    added = json.loads(subprocess.check_output(
+        [sys.executable, "-c", probe], cwd=ROOT, env=env))
+    baseline = json.loads(subprocess.check_output(
+        [sys.executable, "-c", bare], cwd=ROOT, env=env))
+    assert "binder_torch.graft_entry" in added and "torch" in added
+    for name in added:
+        assert name.split(".")[0] not in FORBIDDEN, name
+    for name in baseline:
+        assert name.split(".")[0] not in FORBIDDEN, name
+
+
+def imports_of(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(
+                  node.func, "id", None)) in ("import_module",
+                                              "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_port_sources_import_no_reference():
+    files = sorted(glob.glob(os.path.join(ROOT, "binder_torch", "**",
+                                          "*.py"), recursive=True))
+    assert len(files) >= 39
+    third_party = {}
+    for path in files + [os.path.join(ROOT, "chip_smoke.py")]:
+        rel = os.path.relpath(path, ROOT)
+        for mod in imports_of(path):
+            top = mod.split(".")[0]
+            assert top not in FORBIDDEN, (rel, mod)
+            if (top not in sys.stdlib_module_names
+                    and top != "binder_torch"):
+                third_party.setdefault(rel, set()).add(top)
+    # the serve modules stay stdlib-only; torch lives in graft_entry
+    assert third_party == {
+        os.path.join("binder_torch", "graft_entry.py"): {"numpy", "torch"},
+        "chip_smoke.py": {"numpy", "torch"},
+    }
+
+
+SMOKE_CLEANUP = """
+import json, os, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+from binder_torch.graft_entry import run_ranks
+chip_smoke.serve_phase(hosts=2000, n_udp=200, n_tcp=10)
+means = run_ranks(1, "cpu", timeout_s=120)
+before = [open("/proc/%d/cmdline" % p).read()
+          for p in chip_smoke.descendants(os.getpid())]
+left = chip_smoke.stop_children()
+print(json.dumps({{"means": means, "before": before, "left": left,
+                  "after": chip_smoke.descendants(os.getpid())}}))
+"""
+
+
+def test_chip_smoke_stops_every_process_it_starts():
+    out = subprocess.check_output(
+        [sys.executable, "-c", SMOKE_CLEANUP.format(root=ROOT)],
+        cwd=ROOT, timeout=240)
+    got = json.loads(out.decode().splitlines()[-1])
+    assert got["means"] == [0.5]
+    # the server is gone once the serve phase returns; what the
+    # spawned rank leaves behind is multiprocessing's resource tracker
+    assert len(got["before"]) == 1
+    assert "resource_tracker" in got["before"][0]
+    assert got["left"] == [] and got["after"] == []
+
+
+def test_unported_parts_fail_naming_the_port():
+    opts = {"dnsDomain": "foo.com", "port": 0, "logLevel": "fatal"}
+    with pytest.raises(ModuleNotFoundError) as err:
+        asyncio.run(port_main.run(dict(opts, shards=2)))
+    assert err.value.name == "binder_torch.shard"
+    with pytest.raises(ConfigError, match="binder_torch.store.zk_client"):
+        port_main.make_store({"store": {"backend": "zookeeper"}},
+                             logging.getLogger("binder.test"))
