@@ -10,21 +10,22 @@ rotating service names (``svc.foo.com`` A and
 sorted record sets; every other reply is compared byte for byte.
 
 The port must never load the reference: a fresh interpreter that
-imports the port's entry points holds no ``binder_tpu``, ``jax`` or
-``__graft_entry__`` module afterwards, no file of the port (nor
-``chip_smoke.py``) imports one, only ``graft_entry`` imports torch, and
-a config that asks for a part not yet ported fails naming the port's
-module instead of running reference code.
+imports the port's entry points and its deploy-path modules (ZooKeeper,
+shard group, recursion, federation, config render) holds no
+``binder_tpu``, ``jax`` or ``__graft_entry__`` module afterwards, no
+file of the port (nor ``chip_smoke.py``) imports one, only
+``graft_entry`` imports torch (the deploy-path modules load without it),
+and a config that asks for a part not yet ported (chaos) fails naming
+the port's module instead of running reference code, leaving no shard
+worker behind.
 
 ``chip_smoke.py`` must stop every process it starts, the resource
 tracker that spawning the collective's ranks brings up included.
 """
 import ast
-import asyncio
 import dataclasses
 import glob
 import json
-import logging
 import os
 import re
 import socket
@@ -34,10 +35,6 @@ import sys
 import time
 import urllib.request
 
-import pytest
-
-from binder_torch import main as port_main
-from binder_torch.config.options import ConfigError
 from binder_torch.dns import wire
 from tools import lint
 
@@ -140,22 +137,54 @@ def test_main_answers_like_reference():
     assert lint.validate_rrl_metrics(scrape["binder_torch"]) == []
 
 
-def test_fresh_interpreter_imports_no_reference():
-    probe = ("import sys, json; before = set(sys.modules); "
-             "import binder_torch.main, binder_torch.graft_entry; "
+#: the modules a shard worker or the supervisor loads on the deploy
+#: path, beyond what ``binder_torch.main`` imports eagerly
+DEPLOY_MODULES = ("binder_torch.store.zk_client",
+                  "binder_torch.store.zk_testserver",
+                  "binder_torch.shard", "binder_torch.recursion",
+                  "binder_torch.recursion.ldap_server",
+                  "binder_torch.federation", "binder_torch.config.render")
+
+
+def fresh_imports(modules):
+    """Modules a fresh interpreter gains by importing ``modules``."""
+    probe = ("import sys, json, importlib; before = set(sys.modules); "
+             f"[importlib.import_module(m) for m in {list(modules)!r}]; "
              "print(json.dumps(sorted(set(sys.modules) - before)))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return json.loads(subprocess.check_output(
+        [sys.executable, "-c", probe], cwd=ROOT, env=env))
+
+
+def test_fresh_interpreter_imports_no_reference():
+    added = fresh_imports(("binder_torch.main", "binder_torch.graft_entry")
+                          + DEPLOY_MODULES)
+    # everything a bare interpreter holds (site, .pth files,
+    # sitecustomize), which ``added`` cannot see
     bare = ("import sys, json; "
             "print(json.dumps(sorted(sys.modules)))")
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    added = json.loads(subprocess.check_output(
-        [sys.executable, "-c", probe], cwd=ROOT, env=env))
     baseline = json.loads(subprocess.check_output(
-        [sys.executable, "-c", bare], cwd=ROOT, env=env))
+        [sys.executable, "-c", bare], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT)))
+    assert baseline
     assert "binder_torch.graft_entry" in added and "torch" in added
+    for name in DEPLOY_MODULES:
+        assert name in added
     for name in added:
         assert name.split(".")[0] not in FORBIDDEN, name
     for name in baseline:
         assert name.split(".")[0] not in FORBIDDEN, name
+
+
+def test_deploy_modules_load_without_torch():
+    # shard workers boot and respawn on this set: torch would add
+    # seconds to each
+    added = fresh_imports(("binder_torch.main",) + DEPLOY_MODULES)
+    assert "binder_torch.shard.supervisor" in added
+    assert "binder_torch.recursion.ufds" in added
+    tops = {name.split(".")[0] for name in added}
+    assert "torch" not in tops and "numpy" not in tops
+    assert not tops & set(FORBIDDEN)
 
 
 def imports_of(path):
@@ -179,7 +208,12 @@ def imports_of(path):
 def test_port_sources_import_no_reference():
     files = sorted(glob.glob(os.path.join(ROOT, "binder_torch", "**",
                                           "*.py"), recursive=True))
-    assert len(files) >= 39
+    assert len(files) >= 39 + 18
+    for sub in ("store/jute.py", "store/zk_client.py",
+                "store/zk_testserver.py", "shard/supervisor.py",
+                "recursion/ufds.py", "federation/federation.py",
+                "config/render.py"):
+        assert os.path.join(ROOT, "binder_torch", sub) in files
     third_party = {}
     for path in files + [os.path.join(ROOT, "chip_smoke.py")]:
         rel = os.path.relpath(path, ROOT)
@@ -224,11 +258,72 @@ def test_chip_smoke_stops_every_process_it_starts():
     assert got["left"] == [] and got["after"] == []
 
 
-def test_unported_parts_fail_naming_the_port():
-    opts = {"dnsDomain": "foo.com", "port": 0, "logLevel": "fatal"}
-    with pytest.raises(ModuleNotFoundError) as err:
-        asyncio.run(port_main.run(dict(opts, shards=2)))
-    assert err.value.name == "binder_torch.shard"
-    with pytest.raises(ConfigError, match="binder_torch.store.zk_client"):
-        port_main.make_store({"store": {"backend": "zookeeper"}},
-                             logging.getLogger("binder.test"))
+def test_unported_parts_fail_naming_the_port(tmp_path):
+    # chaos is the part still to port: the supervisor fails naming the
+    # port's module, and its workers go with it
+    config = tmp_path / "chaos.json"
+    config.write_text(json.dumps({
+        "dnsDomain": "foo.com", "host": "127.0.0.1", "shards": 2,
+        "queryLog": False, "logLevel": "info",
+        "store": {"backend": "fake",
+                  "fixture": os.path.join(ROOT, "etc", "fixture.json")},
+        "chaos": {"plan": "at 1 shard-kill shard=0"}}))
+    tag = f"chaos-probe-{os.getpid()}-{time.monotonic_ns()}"
+    proc = subprocess.run(
+        [sys.executable, "-m", "binder_torch.main", "-f", str(config),
+         "-p", "0"], cwd=ROOT, capture_output=True, timeout=60,
+        env=dict(os.environ, BINDER_TEST_TAG=tag))
+    out = proc.stdout.decode() + proc.stderr.decode()
+    assert proc.returncode != 0
+    assert "No module named 'binder_torch.chaos'" in out
+    assert "all 2 shard(s) serving" in out   # the workers had started
+    assert "binder_tpu" not in out
+
+    def tagged():
+        found = []
+        for entry in os.listdir("/proc"):
+            try:
+                with open(f"/proc/{entry}/environ", "rb") as f:
+                    if f"BINDER_TEST_TAG={tag}".encode() in f.read():
+                        found.append(int(entry))
+            except (OSError, ValueError):
+                continue
+        return found
+    deadline = time.monotonic() + 10
+    while tagged():
+        assert time.monotonic() < deadline, tagged()
+        time.sleep(0.05)
+
+
+DEPLOY_SMALL = """
+import json, os, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+lat = chip_smoke.deploy_phase(hosts=2000, n_udp=3000, shards=2)
+print(json.dumps({{"answered": len(lat),
+                  "left": chip_smoke.descendants(os.getpid())}}))
+"""
+
+
+def test_chip_smoke_deploy_phase_on_the_cpu():
+    # the smoke's deploy phase at a small zone: template render, ZK
+    # seed, a 2-worker group under churn and a worker kill, cross-DC,
+    # drain; every check of the phase must hold
+    out = subprocess.run(
+        [sys.executable, "-c", DEPLOY_SMALL.format(root=ROOT)],
+        cwd=ROOT, capture_output=True, timeout=300)
+    lines = out.stdout.decode().splitlines()
+    assert out.returncode == 0, (lines[-5:], out.stderr.decode()[-3000:])
+    report = json.loads(next(x for x in lines
+                             if x.startswith('{"deploy"')))["deploy"]
+    overrides = [x for x in lines if x.startswith("deploy override: ")]
+    assert len(overrides) == 7
+    assert report["errors"] == 0 and report["left_after_drain"] == []
+    assert report["udp_answered"] == 3000
+    assert report["workers_run"] == "binder_torch.main"
+    assert report["respawn"]["respawns"] >= 1
+    assert report["respawn"]["new_pid"] != report["respawn"]["old_pid"]
+    assert report["churn"]["all_read_back"]
+    assert report["churn"]["fresh_samples"] > 0
+    assert report["drain_rc"] == 0
+    assert json.loads(lines[-1]) == {"answered": 3000, "left": []}
