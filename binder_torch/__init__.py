@@ -28,11 +28,15 @@ reference and stay stdlib-only; ``torch`` is imported only by
                                UFDS (LDAP) resolver discovery.
 - ``binder_torch.federation`` — multi-DC federation over the ``/dcs``
                                registry.
+- ``binder_torch.chaos``     — fault injection: the FaultPlan DSL, its
+                               driver, stream-fault clients and a
+                               misbehaving recursion upstream.
+- ``binder_torch._binderfastio`` — the native fast path, built at first
+                               use from ``native/fastio/`` by
+                               ``binder_torch.fastio_build`` (which also
+                               builds the ``mbalancer`` binary).
 - ``binder_torch.graft_entry`` — the latency summary (mean, p50, p99) and
                                the data-parallel all-reduce, on the GPU.
-
-Chaos fault injection is not in this package yet (ROADMAP.md queue A);
-a config that asks for it fails with ``ModuleNotFoundError``.
 
 Note (SURVEY §7.0): the reference contains no tensor/ML workload; this is a
 control-plane system measured on DNS queries/sec and resolve latency.

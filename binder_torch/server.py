@@ -1373,7 +1373,16 @@ class BinderServer:
                   arcount: int, frags) -> None:
         """The one zone_put call site: appends the per-variant log
         fragments only when present, so an older compiled extension
-        (pre-log-ring arity) keeps accepting log-off pushes."""
+        (pre-log-ring arity) keeps accepting log-off pushes.
+
+        Declines while the degradation policy is not fresh: a zone body
+        carries the record's own TTL, and pushed under the current epoch
+        the C drain would serve it unclamped while stale-serving and as
+        data past the cap.  The chunked fill of a large zone (at start,
+        or in a respawned or rolled worker) is still running when a
+        session loss lands; degraded answers are the generic path's."""
+        if self._policy is not None and self._policy.mode() != "fresh":
+            return
         if frags is not None:
             _fastio.fastpath_zone_put(self._fastpath, zkey,
                                       self.zk_cache.epoch, ancount,

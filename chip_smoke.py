@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Start the PyTorch port (``binder_torch``) on one GPU, end to end.
+"""Start the PyTorch port (``binder_torch``) on one GPU host, end to end.
 
 Run from the root of a checkout on a machine with a CUDA device:
 
@@ -9,11 +9,20 @@ Phases, each under its own deadline; any failure reaps every process
 it started and exits non-zero without printing the ``ok`` line:
 
 1. device: require CUDA; print the card's name and power limit.
-2. serve: boot ``python -m binder_torch.main`` on a 100,000-name
+2. native: build the port's native code from ``native/`` (the fast-path
+   extension ``_binderfastio`` and the ``mbalancer`` binary, through
+   ``binder_torch.fastio_build``) and print the seconds each build
+   took; check the extension loaded from the port's build directory
+   with every function; replay a seeded query mix through one
+   in-process ``BinderServer`` on the C lane and again on the Python
+   lane and hold the replies byte for byte (multi-record answers by
+   record set: the lanes rotate independently).
+3. serve: boot ``python -m binder_torch.main`` on a 100,000-name
    synthetic zone plus the shipped fixture and a 64-instance service,
    send a seeded A/PTR/SRV mix over UDP (concurrency 64) and TCP, and
-   check every answer; record per-query latencies.
-3. deploy: the production shape, all of it port code.  Render
+   check every answer; record per-query latencies; the server's
+   ``/metrics`` must show the C lane resident and serving.
+4. deploy: the production shape, all of it port code.  Render
    ``deploy/config/template`` with Triton metadata and layer on only
    what a loopback run needs (each override printed); seed the same
    zone into ``python -m binder_torch.store.zk_testserver`` through the
@@ -24,18 +33,40 @@ it started and exits non-zero without printing the ``ok`` line:
    one worker mid-stream and check its respawn serves a later write;
    forward a ``dc1`` name to a peer port server and compare with the
    peer's own answer; SIGTERM the supervisor and check nothing is left.
-4. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
+   Every worker's C lane must be resident and serving.
+5. balancer: binder's upstream topology, ``mbalancer`` in front of 4
+   ``python -m binder_torch.main -b <socket>`` backends on the serve
+   phase's zone; the serve mix from 16 client addresses through the
+   balancer's UDP and TCP port; every answer right, every backend
+   serving, direct return negotiated and used, the backends' C lanes
+   serving; SIGTERM to every process leaves nothing.
+6. chaos: (a) a 4-worker group over the fake store at the serve
+   phase's zone with a ``chaos`` block scripting every supervisor-side
+   fault, under the 16-socket stream: every query answered or refused,
+   nothing stale past the cap, every action injected, the respawned
+   and rolled workers the port's, RRL engaged, the replica skew caught;
+   (b) in process, recursion to a remote DC through a ``ChaosUpstream``
+   under loss, then a dead peer, then recovery, with the store's
+   session lost and restored: stale within the cap, SERVFAIL past it,
+   and re-convergence.
+7. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
    over the serve and deploy latencies and over a seeded 2**24 + 1
    batch, held against numpy.
-5. collective: the data-parallel mean over NCCL on the one card.
+8. collective: the data-parallel mean over NCCL on the one card.
 
-The port has no hand-written kernel (the JAX package has no Pallas
-kernel to port), so the kernel line is an empty list.  The last line
-is ``{"ok": true, "device": {...}}``.  ``--churn ZK_PORT DNS_PORT`` is
-the deploy phase's churn process, started by the script itself.
+The port has no hand-written GPU kernel (the JAX package has no Pallas
+kernel to port; the native code is host code), so the kernel line is
+an empty list.  Before it, a ``{"native": ...}`` line carries the build
+seconds, the lane parity and the C lane's hits in each phase.  The last
+line is ``{"ok": true, "device": {...}}``.  ``--churn ZK_PORT
+DNS_PORT`` is the deploy phase's churn process, started by the script
+itself.
 """
 from __future__ import annotations
 
+import asyncio
+import contextlib
+import dataclasses
 import json
 import os
 import random
@@ -100,7 +131,182 @@ def device_phase():
     return torch
 
 
-# -- phase 2: serve ---------------------------------------------------
+# -- phase 2: native ---------------------------------------------------
+
+#: the extension's functions (native/fastio/fastio.c, fastio_methods)
+EXTENSION_FUNCTIONS = (
+    "recv_batch", "send_batch", "io_stats", "fastpath_new", "fastpath_put",
+    "fastpath_zone_put", "fastpath_serve_wire", "fastpath_serve_frames",
+    "fastpath_serve_balancer", "fastpath_drain", "fastpath_stats",
+    "fastpath_clear", "fastpath_zone_reserve", "fastpath_invalidate",
+    "fastpath_invalidate_many", "fastpath_log_enable",
+    "fastpath_log_drain")
+#: the dns server's handles on the extension's serve entry points
+NATIVE_SERVE = ("_fp_serve_wire", "_fp_serve_frames", "_fp_serve_balancer")
+PARITY_UDP = 4_000
+PARITY_TCP = 300
+
+
+@contextlib.contextmanager
+def python_lane():
+    """Pin the port's serve modules to the Python lane while inside."""
+    from binder_torch import server
+    from binder_torch.dns import server as dns_server
+    names = [(server, "_fastio"), (dns_server, "_fastio")] + [
+        (dns_server, name) for name in NATIVE_SERVE]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in names]
+    try:
+        for mod, name in names:
+            setattr(mod, name, None)
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+
+
+def zone_mirror(hosts: int):
+    """The serve phase's zone as an in-process fake store and mirror."""
+    from binder_torch.store import FakeStore, MirrorCache
+    from binder_torch.store.fake import load_state, populate_synthetic
+    store = FakeStore()
+    load_state(store, zone_fixture())
+    populate_synthetic(store, DOMAIN, hosts=hosts)
+    cache = MirrorCache(store, DOMAIN)
+    store.start_session()
+    return cache
+
+
+def ask_each(port: int, transport: str, wires):
+    """``wires`` one at a time over one socket; the replies in order."""
+    out = []
+    if transport == "udp":
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            s.settimeout(REPLY_STALL_S)
+            for w in wires:
+                s.sendto(w, ("127.0.0.1", port))
+                out.append(s.recv(65535))
+        return out
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=REPLY_STALL_S) as s:
+        for w in wires:
+            s.sendall(struct.pack(">H", len(w)) + w)
+            out.append(_recv_exact(s, struct.unpack(
+                ">H", _recv_exact(s, 2))[0]))
+    return out
+
+
+async def lane_replies(cache, udp_wires, tcp_wires):
+    """The replies of a fresh server on whichever lane the modules are
+    pinned to, and its C lane's counters (None on the Python lane)."""
+    from binder_torch import _binderfastio
+    from binder_torch.metrics.collector import MetricsCollector
+    from binder_torch.server import BinderServer
+    server = BinderServer(
+        zk_cache=cache, dns_domain=DOMAIN, datacenter_name="dc0",
+        collector=MetricsCollector(), host="127.0.0.1", port=0,
+        query_log=False, rrl={"allowlist": ["127.0.0.0/8"]})
+    server.resolver.rng = random.Random(SEED)
+    await server.start()
+    try:
+        loop = asyncio.get_running_loop()
+        udp = await loop.run_in_executor(None, ask_each, server.udp_port,
+                                         "udp", udp_wires)
+        tcp = await loop.run_in_executor(None, ask_each, server.tcp_port,
+                                         "tcp", tcp_wires)
+        stats = (_binderfastio.fastpath_stats(server._fastpath)
+                 if server._fastpath is not None else None)
+        return udp + tcp, stats
+    finally:
+        await server.stop()
+
+
+def record_sets(data: bytes):
+    from binder_torch.dns import Message
+    m = Message.decode(data)
+
+    def rows(section):
+        return sorted(repr(dataclasses.astuple(r)) for r in section)
+    return (data[:12], rows(m.answers), rows(m.authorities),
+            rows(m.additionals))
+
+
+def lane_parity(hosts: int = HOSTS, n_udp: int = PARITY_UDP,
+                n_tcp: int = PARITY_TCP):
+    """The seeded mix (each UDP query asked twice: the second is a C
+    answer-cache hit) through the C lane and then the Python lane."""
+    from binder_torch.dns import Message, Type, make_query
+    rng = random.Random(SEED + 3)
+    mix = [(n, t, 1232) for n, t, _ in query_mix(rng, n_udp, hosts)] + [
+        (f"_http._tcp.big.{DOMAIN}", Type.SRV, 1232),
+        (f"big.{DOMAIN}", Type.A, None), (f"nope.{DOMAIN}", Type.A, 1232),
+        (f"web.{DOMAIN}", Type.AAAA, None)]
+    udp = [make_query(n, t, qid=(k + 1) & 0xFFFF, edns_payload=e).encode()
+           for k, (n, t, e) in enumerate(mix)]
+    tcp = udp[:n_tcp] + udp[-4:]
+    cache = zone_mirror(hosts)
+    t0 = time.monotonic()
+    native, stats = asyncio.run(lane_replies(cache, udp + udp, tcp))
+    native_s = time.monotonic() - t0
+    with python_lane():
+        t0 = time.monotonic()
+        python, none = asyncio.run(lane_replies(cache, udp + udp, tcp))
+        python_s = time.monotonic() - t0
+    if stats is None or none is not None:
+        raise PhaseError("native: the lanes were not pinned as asked")
+    identical = rotated = 0
+    differ = []
+    for k, (got, want) in enumerate(zip(native, python)):
+        if got == want:
+            identical += 1
+        elif (len(Message.decode(want).answers) > 1
+              and record_sets(got) == record_sets(want)):
+            rotated += 1
+        else:
+            differ.append(k)
+    report = {"zone_names": hosts, "replies": len(native),
+              "identical": identical, "same_records_rotated": rotated,
+              "differ": len(differ), "c_lane_s": native_s,
+              "python_lane_s": python_s,
+              "c_zone_hits": stats["zone_hits"],
+              "c_cache_hits": stats["hits"]}
+    if differ:
+        raise PhaseError(f"native: {len(differ)} C-lane repl(ies) differ "
+                         f"from the Python lane, e.g. #{differ[:5]}")
+    if stats["zone_hits"] + stats["hits"] <= 0:
+        raise PhaseError(f"native: the C lane served nothing: {stats}")
+    return report
+
+
+def native_phase(hosts: int = HOSTS):
+    """Build the port's native code, check the extension, and hold the
+    C lane against the Python lane; returns the report."""
+    from binder_torch import fastio_build
+    report = {"build_s": {}, "compiler_s": {}, "clean_checkout": {}}
+    for name in ("extension", "mbalancer"):
+        report["clean_checkout"][name] = not os.path.exists(
+            fastio_build.artifact_path(name))
+        t0 = time.monotonic()
+        path, compiled = fastio_build.build(name)
+        report["build_s"][name] = time.monotonic() - t0
+        report["compiler_s"][name] = compiled
+        log(f"native: {name} at {os.path.relpath(path, ROOT)}, "
+            f"{report['build_s'][name]}s")
+    from binder_torch import _binderfastio
+    if os.path.dirname(os.path.dirname(_binderfastio.__file__)) != \
+            fastio_build.BUILD_DIR:
+        raise PhaseError(f"native: the extension came from "
+                         f"{_binderfastio.__file__}")
+    missing = [f for f in EXTENSION_FUNCTIONS
+               if not callable(getattr(_binderfastio, f, None))]
+    if missing:
+        raise PhaseError(f"native: the extension lacks {missing}")
+    report["functions"] = len(EXTENSION_FUNCTIONS)
+    report["parity"] = lane_parity(hosts)
+    log(json.dumps({"native_phase": report}))
+    return report
+
+
+# -- phase 3: serve ---------------------------------------------------
 
 
 def host_name(i: int, racks: int) -> str:
@@ -111,7 +317,8 @@ def host_addr(i: int) -> str:
     return f"10.{(i >> 16) & 255}.{(i >> 8) & 255}.{i & 255}"
 
 
-def write_config(tmp: str, hosts: int) -> str:
+def zone_fixture():
+    """The shipped fixture plus the 64-instance ``big`` service."""
     with open(os.path.join(ROOT, "etc", "fixture.json")) as f:
         fixture = json.load(f)
     fixture["/com/foo/big"] = BIG_SERVICE
@@ -119,12 +326,16 @@ def write_config(tmp: str, hosts: int) -> str:
         fixture[f"/com/foo/big/lb{k}"] = {
             "type": "load_balancer",
             "load_balancer": {"address": f"10.200.0.{k + 1}"}}
+    return fixture
+
+
+def write_config(tmp: str, hosts: int, **extra) -> str:
     fixture_path = os.path.join(tmp, "fixture.json")
     with open(fixture_path, "w") as f:
-        json.dump(fixture, f)
+        json.dump(zone_fixture(), f)
     config_path = os.path.join(tmp, "config.json")
     with open(config_path, "w") as f:
-        json.dump({
+        json.dump(dict({
             "dnsDomain": DOMAIN, "datacenterName": "dc0",
             "host": "127.0.0.1",
             "store": {"backend": "fake", "fixture": fixture_path,
@@ -133,7 +344,7 @@ def write_config(tmp: str, hosts: int) -> str:
             # one client address drives the whole stream: keep the
             # limiter on but let loopback through
             "rrl": {"allowlist": ["127.0.0.0/8"]},
-        }, f)
+        }, **extra), f)
     return config_path
 
 
@@ -146,6 +357,79 @@ def boot_server(config_path: str, log_path: str,
     m = wait_line(proc, log_path, rb"UDP DNS service started on [\d.]+:(\d+)",
                   what, BOOT_DEADLINE_S)
     return proc, int(m.group(1))
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def metrics_port(log_path: str) -> int:
+    return int(re.search(rb"metrics server started on port (\d+)",
+                         read_bytes(log_path)).group(1))
+
+
+#: the C lane's residency gauges in a server's ``/metrics``
+#: (binder_torch/server.py)
+NATIVE_GAUGES = ("binder_fastpath_entries", "binder_zone_entries")
+#: what the C lane served: its zone-table serves (``binder_zone_serves``
+#: counts those alone) and its answer-cache hits (folded into
+#: ``binder_answer_cache_hits`` together with the Python answer cache's
+#: hits, which ``/status`` reports on their own)
+NATIVE_COUNTERS = ("c_zone_hits", "c_cache_hits")
+
+#: the serve and deploy streams' readings on the Python lane, before
+#: the port had its C lane (PERF.md section 6, runs A, B and C, one H100
+#: host each), printed beside this run's for comparison
+PYTHON_LANE_READINGS = {
+    "serve": {"udp_qps": [4827.638099511424, 12167.926191014554,
+                          9291.262829109179],
+              "udp_p50_us": [10742.146, 4269.023499999999, 5819.664],
+              "udp_p99_us": [27206.841309999974, 9570.880469999984,
+                             10862.36385]},
+    "deploy": {"udp_qps": [3600.0303175113168, 15714.211748987598,
+                           10774.113278288978],
+               "udp_p50_us": [8192.0235, 1896.5875, 2855.8285],
+               "udp_p99_us": [38843.57747000001, 6552.6429,
+                              9939.055210000004]},
+}
+
+
+def metric_sum(text: str, family: str) -> float:
+    """The sum of every series of ``family`` in an exposition."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.split("{", 1)[0].split(" ", 1)[0] == family:
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def native_reading(mport: int):
+    text = http_json(mport, "/metrics")
+    python_hits = http_json(mport, "/status")["answer_cache"]["hits"]
+    out = {f: metric_sum(text, f) for f in NATIVE_GAUGES}
+    out["c_zone_hits"] = metric_sum(text, "binder_zone_serves")
+    out["c_cache_hits"] = (metric_sum(text, "binder_answer_cache_hits")
+                           - python_hits)
+    return out
+
+
+def native_delta(before, after):
+    """The C lane's state after a stream and what it served in it."""
+    out = {f: after[f] for f in NATIVE_GAUGES}
+    out.update({f: after[f] - before[f] for f in NATIVE_COUNTERS})
+    return out
+
+
+def native_gate(what: str, before, after):
+    """Errors unless the C lane was resident after a stream and served
+    in it."""
+    errors = [f"{what}: {g} is {after[g]}" for g in NATIVE_GAUGES
+              if not after[g] > 0]
+    served = native_delta(before, after)
+    if not served["c_zone_hits"] + served["c_cache_hits"] > 0:
+        errors.append(f"{what}: the C lane served nothing: {served}")
+    return errors
 
 
 def spawn(args, log_path: str):
@@ -406,19 +690,21 @@ def tcp_checks(port: int, queries):
 
 
 def serve_phase(hosts: int = HOSTS, n_udp: int = N_UDP,
-                n_tcp: int = N_TCP):
+                n_tcp: int = N_TCP, native=None):
     """Boot the port's server and drive it; return the UDP latencies
-    (microseconds).  Raises PhaseError on any wrong or missing
-    answer."""
+    (microseconds), and put the C lane's readings in ``native``.
+    Raises PhaseError on any wrong or missing answer."""
     rng = random.Random(SEED)
     proc = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         try:
             t0 = time.monotonic()
-            proc, port = boot_server(write_config(tmp, hosts),
-                                     os.path.join(tmp, "server.log"))
+            log_path = os.path.join(tmp, "server.log")
+            proc, port = boot_server(write_config(tmp, hosts), log_path)
             boot_s = time.monotonic() - t0
+            mport = metrics_port(log_path)
             udp_q = query_mix(rng, n_udp, hosts)
+            before = native_reading(mport)
             server_cpu0 = cpu_seconds(proc.pid)
             client_cpu0 = time.process_time()
             t0 = time.monotonic()
@@ -428,6 +714,8 @@ def serve_phase(hosts: int = HOSTS, n_udp: int = N_UDP,
             # which one held the rate down
             server_busy = (cpu_seconds(proc.pid) - server_cpu0) / udp_s
             client_busy = (time.process_time() - client_cpu0) / udp_s
+            after = native_reading(mport)
+            errors += native_gate("serve", before, after)
             errors += tcp_checks(port, query_mix(rng, n_tcp, hosts))
             if proc.poll() is not None:
                 errors.append(f"server exited {proc.returncode} mid-run")
@@ -442,7 +730,11 @@ def serve_phase(hosts: int = HOSTS, n_udp: int = N_UDP,
                   "errors": len(errors), "udp_qps": len(lat) / udp_s,
                   "udp_p50_us": float(pct[0]), "udp_p99_us": float(pct[1]),
                   "udp_server_cpu_busy": server_busy,
-                  "udp_client_cpu_busy": client_busy}}))
+                  "udp_client_cpu_busy": client_busy,
+                  "c_lane": native_delta(before, after),
+                  "python_lane_before": PYTHON_LANE_READINGS["serve"]}}))
+    if native is not None:
+        native["serve"] = native_delta(before, after)
     if errors:
         for e in errors[:20]:
             log("serve error: " + e)
@@ -451,7 +743,7 @@ def serve_phase(hosts: int = HOSTS, n_udp: int = N_UDP,
     return lat
 
 
-# -- phase 3: deploy --------------------------------------------------
+# -- phase 4: deploy --------------------------------------------------
 
 DEPLOY_SHARDS = 4
 DEPLOY_UDP = 60_000
@@ -625,7 +917,7 @@ def http_json(port: int, path: str):
             return json.loads(body) if path == "/status" else body.decode()
         except OSError:
             time.sleep(0.1)
-    raise PhaseError(f"deploy: no answer from :{port}{path}")
+    raise PhaseError(f"no answer from :{port}{path}")
 
 
 def shard_series(mport: int, family: str):
@@ -646,8 +938,10 @@ def cmdline(pid: int) -> str:
 
 
 def fresh_ask(port: int, name: str, qid: int, host: str = "127.0.0.1",
-              rd: bool = False) -> bytes:
-    """One A query on a fresh socket (a fresh reuseport draw)."""
+              rd: bool = False, required: bool = True):
+    """One A query on a fresh socket (a fresh reuseport draw), asked up
+    to three times; with no reply, PhaseError, or None when not
+    ``required``."""
     from binder_torch.dns import Type, make_query
     q = make_query(name, Type.A, qid=qid, rd=rd).encode()
     for _ in range(3):
@@ -658,7 +952,9 @@ def fresh_ask(port: int, name: str, qid: int, host: str = "127.0.0.1",
                 return s.recv(65535)
             except socket.timeout:
                 continue
-    raise PhaseError(f"deploy: no answer for {name}")
+    if required:
+        raise PhaseError(f"no answer for {name}")
+    return None
 
 
 def a_addrs(data: bytes):
@@ -681,11 +977,13 @@ def wait_everywhere(port: int, name: str, addr: str, flows: int,
         time.sleep(0.05)
 
 
-def zone_sweep(port: int, hosts: int, deadline: float) -> None:
-    """Ask every host's A record over ``FLOWS`` sockets, again and
-    again for the ones not yet right, until all are or ``deadline``."""
+def zone_sweep(port: int, hosts: int, deadline: float,
+               indices=None, what: str = "deploy") -> None:
+    """Ask every host's A record (or those of ``indices``) over
+    ``FLOWS`` sockets, again and again for the ones not yet right,
+    until all are or ``deadline``."""
     racks = max(1, min(1024, hosts // 512))
-    todo = list(range(hosts))
+    todo = list(range(hosts)) if indices is None else list(indices)
     while todo:
         queries = [(host_name(i, racks), 1, ("a", {host_addr(i)}))
                    for i in todo]
@@ -693,26 +991,32 @@ def zone_sweep(port: int, hosts: int, deadline: float) -> None:
         wrong = {e.split(":")[0] for e in errors}
         todo = [i for i in todo if host_name(i, racks) in wrong]
         if todo and time.monotonic() > deadline:
-            raise PhaseError(f"deploy: {len(todo)} host(s) still not "
+            raise PhaseError(f"{what}: {len(todo)} host(s) still not "
                              f"served right, e.g. {errors[:3]}")
         if todo:
             time.sleep(0.5)
 
 
 def udp_flows(port: int, queries, flows: int, concurrency: int,
-              on_progress=None):
+              on_progress=None, sources=None, check=check_reply,
+              stop=None):
     """Drive ``queries`` over ``flows`` UDP sockets (distinct source
-    ports, so SO_REUSEPORT spreads them over the group) with
-    ``concurrency`` in flight in all; a query unanswered after
-    ``RETRY_AFTER_S`` is sent once more.  Returns ``(latencies_us,
-    errors, retries)``."""
+    ports, so SO_REUSEPORT spreads them over the group; each bound to
+    its address in ``sources`` when given) with ``concurrency`` in
+    flight in all; a query unanswered after ``RETRY_AFTER_S`` is sent
+    once more.  ``check(msg, expect)`` judges each reply (an empty
+    string when it is right).  With ``stop``, the stream cycles
+    through ``queries`` (at most 65,536, one per query ID) until
+    ``stop()`` is true.  Returns ``(latencies_us, errors, retries)``."""
     from binder_torch.dns import Message, make_query
     wires = [make_query(name, qtype, qid=i & 0xFFFF).encode()
              for i, (name, qtype, _) in enumerate(queries)]
     per = max(1, concurrency // flows)
     socks = []
-    for _ in range(flows):
+    for k in range(flows):
         s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        if sources is not None:
+            s.bind((sources[k], 0))
         s.connect(("127.0.0.1", port))
         s.setblocking(False)
         socks.append(s)
@@ -722,14 +1026,20 @@ def udp_flows(port: int, queries, flows: int, concurrency: int,
     lat, errors = [], []
     retries = 0
     nxt = done = 0
+    total = len(queries) if stop is None else None    # None: until stop
     deadline = time.monotonic() + UDP_DEADLINE_S
     try:
-        while nxt < len(queries) or any(pending):
+        while total is None or nxt < total or any(pending):
+            if total is None and stop():
+                total = nxt
             for k, s in enumerate(socks):
-                while nxt < len(queries) and len(pending[k]) < per:
+                while (total is None or nxt < total) \
+                        and len(pending[k]) < per:
+                    idx = nxt % len(queries)
                     now = time.perf_counter_ns()
-                    pending[k][nxt & 0xFFFF] = [nxt, now, now]
-                    s.send(wires[nxt])
+                    pending[k][idx & 0xFFFF] = [idx, now, now]
+                    retried[k].discard(idx & 0xFFFF)
+                    s.send(wires[idx])
                     nxt += 1
             ready, _, _ = select.select(socks, [], [], 0.05)
             for s in ready:
@@ -749,8 +1059,7 @@ def udp_flows(port: int, queries, flows: int, concurrency: int,
                     idx, t_first, _ = entry
                     lat.append((t1 - t_first) / 1000.0)
                     done += 1
-                    why = check_reply(Message.decode(data),
-                                      queries[idx][2])
+                    why = check(Message.decode(data), queries[idx][2])
                     if why:
                         errors.append(f"{queries[idx][0]}: {why}")
                     if on_progress is not None:
@@ -947,11 +1256,12 @@ def worker_busy(mport: int, workers, cpu0, t0: float, killed):
 
 
 def deploy_phase(hosts: int = HOSTS, n_udp: int = DEPLOY_UDP,
-                 shards: int = DEPLOY_SHARDS):
+                 shards: int = DEPLOY_SHARDS, native=None):
     """The production shape over the port: the deploy template, the
     port's ZooKeeper server at the serve phase's zone, a reuseport
     group of ``shards`` workers under churn and a worker crash, and a
-    cross-DC forward.  Returns the stream's latencies (microseconds)."""
+    cross-DC forward.  Returns the stream's latencies (microseconds),
+    and puts the workers' C-lane readings in ``native``."""
     import asyncio
     rng = random.Random(SEED + 1)
     procs = []
@@ -993,12 +1303,22 @@ def deploy_phase(hosts: int = HOSTS, n_udp: int = DEPLOY_UDP,
             mport = int(re.search(rb"metrics server started on port "
                                   rb"(\d+)", text).group(1))
             last = host_name(hosts - 1, max(1, min(1024, hosts // 512)))
-            while a_addrs(fresh_ask(port, last, 1)) != [host_addr(hosts - 1)]:
+            # a readiness poll: while the owner's walk streams in, a
+            # busy worker may leave a probe unanswered; the gate is the
+            # boot deadline
+            silent = 0
+            while True:
+                reply = fresh_ask(port, last, 1, required=False)
+                if reply is not None and \
+                        a_addrs(reply) == [host_addr(hosts - 1)]:
+                    break
+                silent += reply is None
                 if time.monotonic() - t0 > DEPLOY_BOOT_DEADLINE_S:
                     raise PhaseError(f"deploy: {last} not served in "
                                      f"{DEPLOY_BOOT_DEADLINE_S:.0f}s")
                 time.sleep(0.05)
             report["boot_first_answer_s"] = time.monotonic() - t0
+            report["boot_probes_unanswered"] = silent
             # the last host answering is not the whole zone: the owner
             # fetches data of earlier znodes in the same pipelined walk
             zone_sweep(port, hosts, t0 + DEPLOY_BOOT_DEADLINE_S)
@@ -1039,12 +1359,26 @@ def deploy_phase(hosts: int = HOSTS, n_udp: int = DEPLOY_UDP,
                     killed.update(pid=victim, shard=shards - 1, cpu=cpu,
                                   at=time.monotonic())
 
+            c_lane0 = {w["shard"]: native_reading(w["metrics_port"])
+                       for w in workers}
             cpu0 = {pid: cpu_seconds(pid) for pid in pids + [group.pid]}
             client_cpu0 = time.process_time()
             t0 = time.monotonic()
             lat, errors, retries = udp_flows(port, queries, FLOWS,
                                              CONCURRENCY, on_progress)
             udp_s = time.monotonic() - t0
+            # the C lane of every worker that lived through the stream
+            report["c_lane"] = {}
+            for w in workers:
+                if w["pid"] == killed.get("pid"):
+                    continue
+                after = native_reading(w["metrics_port"])
+                errors += native_gate(f"deploy shard {w['shard']}",
+                                      c_lane0[w["shard"]], after)
+                report["c_lane"][w["shard"]] = native_delta(
+                    c_lane0[w["shard"]], after)
+            if native is not None:
+                native["deploy"] = report["c_lane"]
             report.update(udp_queries=n_udp, udp_answered=len(lat),
                           udp_retries=retries, udp_qps=len(lat) / udp_s)
             report["client_cpu_busy"] = \
@@ -1156,7 +1490,8 @@ def deploy_phase(hosts: int = HOSTS, n_udp: int = DEPLOY_UDP,
         report["left_after_drain"] = left
     pct = np.percentile(np.asarray(lat, np.float64), [50, 99]) \
         if lat else [float("nan")] * 2
-    report.update(udp_p50_us=float(pct[0]), udp_p99_us=float(pct[1]))
+    report.update(udp_p50_us=float(pct[0]), udp_p99_us=float(pct[1]),
+                  python_lane_before=PYTHON_LANE_READINGS["deploy"])
     log(json.dumps({"deploy": report}))
     if errors or left:
         for e in errors[:20]:
@@ -1166,7 +1501,639 @@ def deploy_phase(hosts: int = HOSTS, n_udp: int = DEPLOY_UDP,
     return lat
 
 
-# -- phase 4: aggregate -----------------------------------------------
+# -- phase 5: balancer ------------------------------------------------
+
+BALANCER_BACKENDS = 4
+BALANCER_UDP = 20_000
+#: one client address per flow: the balancer keeps each remote address
+#: on one backend and assigns new ones round-robin, so 16 addresses
+#: reach all 4 backends
+BALANCER_CLIENTS = [f"127.0.1.{k + 1}" for k in range(FLOWS)]
+BALANCER_DEADLINE_S = 60.0
+
+
+def balancer_stats(sockdir: str):
+    """The balancer's JSON state from its ``.balancer.stats`` socket."""
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as c:
+        c.settimeout(2)
+        c.connect(os.path.join(sockdir, ".balancer.stats"))
+        buf = b""
+        while True:
+            chunk = c.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    return json.loads(buf)
+
+
+def start_balancer(sockdir: str, log_path: str):
+    """``mbalancer`` as the port builds it, on an ephemeral port; the
+    process and the port it announced."""
+    from binder_torch import fastio_build
+    binary, _ = fastio_build.build("mbalancer")
+    err = open(log_path, "wb")
+    proc = subprocess.Popen([binary, "-d", sockdir, "-p", "0", "-b",
+                             "127.0.0.1", "-s", "150"],
+                            stdout=subprocess.PIPE, stderr=err)
+    err.close()
+    ready, _, _ = select.select([proc.stdout], [], [], 30)
+    line = proc.stdout.readline() if ready else b""
+    if not line.startswith(b"PORT "):
+        proc.kill()
+        proc.wait()
+        raise PhaseError(f"balancer: mbalancer announced {line!r}")
+    return proc, int(line.split()[1])
+
+
+def balancer_phase(hosts: int = HOSTS, n_udp: int = BALANCER_UDP,
+                   backends: int = BALANCER_BACKENDS, native=None):
+    """``mbalancer`` in front of ``backends`` port servers on their
+    balancer sockets (``python -m binder_torch.main -b``), the serve
+    mix through it from ``FLOWS`` client addresses, direct return on
+    the C lane; returns the stream's latencies (microseconds)."""
+    rng = random.Random(SEED + 2)
+    procs = []
+    report = {"zone_names": hosts, "backends": backends}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_balancer_") as tmp:
+        sockdir = os.path.join(tmp, "sockets")
+        os.mkdir(sockdir)
+        logs = [os.path.join(tmp, f"backend{k}.log")
+                for k in range(backends)]
+        try:
+            config = write_config(tmp, hosts)
+            t0 = time.monotonic()
+            for k in range(backends):
+                procs.append(spawn(["-m", "binder_torch.main", "-f", config,
+                                    "-p", "0", "-b",
+                                    os.path.join(sockdir, str(k))],
+                                   logs[k]))
+            for k in range(backends):
+                wait_line(procs[k], logs[k], rb"UDP DNS service started",
+                          f"balancer: backend {k}", BOOT_DEADLINE_S)
+            report["backends_boot_s"] = time.monotonic() - t0
+            mports = [metrics_port(path) for path in logs]
+            bal, port = start_balancer(sockdir,
+                                       os.path.join(tmp, "mbalancer.log"))
+            procs.append(bal)
+            # direct return, both sides: the balancer passed its client
+            # socket to every backend, and every backend adopted it
+            deadline = time.monotonic() + BALANCER_DEADLINE_S
+            while True:
+                stats = balancer_stats(sockdir)
+                up = [b for b in stats["backends"]
+                      if b["healthy"] and b.get("direct")]
+                adopted = sum(b"balancer passed its client socket" in
+                              read_bytes(path) for path in logs)
+                if len(up) == backends and adopted == backends:
+                    break
+                if time.monotonic() > deadline:
+                    raise PhaseError(f"balancer: {len(up)} backend(s) "
+                                     f"direct, {adopted} adopted the "
+                                     "client socket")
+                time.sleep(0.1)
+            report["direct_negotiated"] = backends
+            c_lane0 = [native_reading(m) for m in mports]
+            queries = query_mix(rng, n_udp, hosts)
+            client_cpu0 = time.process_time()
+            t0 = time.monotonic()
+            lat, errors, retries = udp_flows(port, queries, FLOWS,
+                                             CONCURRENCY,
+                                             sources=BALANCER_CLIENTS)
+            udp_s = time.monotonic() - t0
+            report.update(udp_queries=n_udp, udp_answered=len(lat),
+                          udp_retries=retries, udp_qps=len(lat) / udp_s,
+                          client_cpu_busy=(time.process_time()
+                                           - client_cpu0) / udp_s)
+            errors += tcp_checks(port, query_mix(rng, N_TCP, hosts))
+            stats = balancer_stats(sockdir)
+            report["c_lane"] = []
+            for k in range(backends):
+                after = native_reading(mports[k])
+                errors += native_gate(f"balancer backend {k}", c_lane0[k],
+                                      after)
+                report["c_lane"].append(native_delta(c_lane0[k], after))
+            if native is not None:
+                native["balancer"] = report["c_lane"]
+            report["forwarded"] = [b["forwarded"] for b in stats["backends"]]
+            report["mbalancer"] = {k: stats.get(k) for k in (
+                "udp_queries", "tcp_queries", "cache_hits", "fd_passes",
+                "direct_forwards")}
+            if len(report["forwarded"]) != backends or \
+                    min(report["forwarded"]) <= 0:
+                errors.append(f"a backend served nothing: "
+                              f"{report['forwarded']}")
+            if stats["fd_passes"] < backends or \
+                    stats["direct_forwards"] <= 0:
+                errors.append("direct return not used: fd_passes "
+                              f"{stats['fd_passes']}, direct_forwards "
+                              f"{stats['direct_forwards']}")
+            # SIGTERM to each process: backends unlink their sockets
+            # and exit 0, the balancer goes with the signal
+            for proc in procs:
+                proc.send_signal(signal.SIGTERM)
+            report["sigterm_rc"] = []
+            for proc in procs:
+                try:
+                    report["sigterm_rc"].append(
+                        proc.wait(timeout=DRAIN_DEADLINE_S))
+                except subprocess.TimeoutExpired:
+                    raise PhaseError("balancer: a process outlived "
+                                     "SIGTERM")
+            if report["sigterm_rc"] != [0] * backends + [-signal.SIGTERM]:
+                errors.append(f"exit codes on SIGTERM "
+                              f"{report['sigterm_rc']}")
+            left_sockets = sorted(set(os.listdir(sockdir))
+                                  - {".balancer.stats"})
+            if left_sockets:
+                errors.append(f"backend sockets left: {left_sockets}")
+            report["errors"] = len(errors)
+        except PhaseError:
+            for path in logs + [os.path.join(tmp, "mbalancer.log")]:
+                if os.path.exists(path):
+                    with open(path, "rb") as f:
+                        tail = f.read()[-3000:].decode(errors="replace")
+                    log(f"--- {os.path.basename(path)} (last 3000 bytes) "
+                        f"---\n{tail}")
+            raise
+        finally:
+            for proc in reversed(procs):
+                reap(proc)
+        left = descendants(os.getpid())
+        report["left_after_sigterm"] = left
+    pct = np.percentile(np.asarray(lat, np.float64), [50, 99]) \
+        if lat else [float("nan")] * 2
+    report.update(udp_p50_us=float(pct[0]), udp_p99_us=float(pct[1]))
+    log(json.dumps({"balancer": report}))
+    if errors or left:
+        for e in errors[:20]:
+            log("balancer error: " + e)
+        raise PhaseError(f"balancer: {len(errors)} error(s), "
+                         f"{len(left)} process(es) left")
+    return lat
+
+
+# -- phase 6: chaos ---------------------------------------------------
+
+CHAOS_SHARDS = 4
+#: every supervisor-side action of the chaos DSL (binder_torch/chaos/
+#: plan.py), on the clock the supervisor starts once its group serves.
+#: The skew goes first so the storm's deltas carry it to the digest
+#: check; the respawn and the roll each get time to take a snapshot of
+#: the zone; the session loss is held past the staleness cap before
+#: the restore, so both the stale and the exhausted window show.
+CHAOS_PLAN = ("at 3 skew-replica shard=1; at 3.5 watch-storm n=600; "
+              "at 5 tcp-slow-reader conns=2 queries=512; "
+              "at 5.5 tcp-half-close queries=3; at 6 tcp-rst conns=2; "
+              "at 6.5 rrl-flood n=400; at 7 shard-kill shard=0; "
+              "at 12 worker-roll shard=2; at 20 lose-session; "
+              "at 21 loop-stall ms=120; at 26 restore-session")
+CHAOS_MAX_STALE_S = 3.0
+CHAOS_TTL_CLAMP_S = 5
+#: a worker learns of the owner's session loss from its next session
+#: frame (every 0.5 s), and a reply is judged when it arrives: the cap
+#: and the clamp are held from this long after the injection
+CHAOS_SLACK_S = 1.0
+#: the stream runs on this long after the last action
+CHAOS_AFTER_S = 3.0
+#: the measurement client's /24 is allowlisted; the spoofed flood's
+#: prefixes (127.66/16, 127.99/16) meet a low limit
+CHAOS_RRL = {"responsesPerSecond": 20, "burst": 40,
+             "allowlist": ["127.0.0.0/24"]}
+CHAOS_SAMPLE = 2048
+CHAOS_DEADLINE_S = 120.0
+#: the watch-storm's last write to each ``chaos<k>`` name (main.py's
+#: mutator writes 10.254.<i % 8>.<i % 250 + 1> for i in range(n))
+CHAOS_NAMES = {f"chaos{k}.{DOMAIN}": f"10.254.{k}.{(592 + k) % 250 + 1}"
+               for k in range(8)}
+
+
+def log_events(log_path: str):
+    """``(unix time, message)`` of every JSON line of a process log."""
+    from datetime import datetime, timezone
+    out = []
+    for line in read_bytes(log_path).decode(errors="replace").splitlines():
+        if not line.startswith("{"):
+            continue
+        try:
+            rec = json.loads(line)
+            t = datetime.strptime(rec["time"], "%Y-%m-%dT%H:%M:%S.%fZ")
+        except (ValueError, KeyError):
+            continue
+        out.append((t.replace(tzinfo=timezone.utc).timestamp(),
+                    str(rec.get("msg", ""))))
+    return out
+
+
+def chaos_judge(seen):
+    """Check one reply of the chaos stream and note when it came:
+    right data, or a refusal (SERVFAIL, REFUSED)."""
+    from binder_torch.dns import Rcode
+
+    def check(msg, expect) -> str:
+        t = time.time()
+        if msg.rcode == Rcode.NOERROR:
+            seen.append((t, 0, min((r.ttl for r in msg.answers),
+                                   default=None)))
+            return check_reply(msg, expect)
+        if msg.rcode in (Rcode.SERVFAIL, Rcode.REFUSED):
+            seen.append((t, msg.rcode, None))
+            return ""
+        return f"rcode {msg.rcode}"
+    return check
+
+
+def stale_windows(seen, t_lose: float, t_restore: float):
+    """Replies by window of the session loss: data while stale (TTL
+    clamped), refusals past the cap, and the violations: data served
+    past the cap, or unclamped after the loss."""
+    cap_end = t_lose + CHAOS_MAX_STALE_S + CHAOS_SLACK_S
+    out = {"stale_answers": 0, "refusals_past_cap": 0,
+           "data_past_cap": 0, "unclamped_while_stale": 0,
+           "violations_s_after_loss": None}
+    bad = []
+    for t, rcode, ttl in seen:
+        if not t_lose + CHAOS_SLACK_S < t < t_restore:
+            continue
+        if rcode == 0:
+            if t > cap_end:
+                out["data_past_cap"] += 1
+                bad.append(t - t_lose)
+            elif ttl is not None and ttl > CHAOS_TTL_CLAMP_S:
+                out["unclamped_while_stale"] += 1
+                bad.append(t - t_lose)
+            else:
+                out["stale_answers"] += 1
+        elif t > cap_end:
+            out["refusals_past_cap"] += 1
+    if bad:
+        out["violations_s_after_loss"] = [min(bad), max(bad)]
+    return out
+
+
+class LogWatch:
+    """True once ``pattern`` is in the log and ``after_s`` more have
+    passed; reads the log at most every quarter second."""
+
+    def __init__(self, log_path: str, pattern: bytes, after_s: float):
+        self.log_path, self.pattern, self.after_s = log_path, pattern, after_s
+        self.seen_at = None
+        self.read_at = 0.0
+
+    def __call__(self) -> bool:
+        now = time.monotonic()
+        if self.seen_at is None and now - self.read_at > 0.25:
+            self.read_at = now
+            if self.pattern in read_bytes(self.log_path):
+                self.seen_at = now
+        return self.seen_at is not None and now - self.seen_at > self.after_s
+
+
+def chaos_group_leg(hosts: int = HOSTS, shards: int = CHAOS_SHARDS):
+    """Leg (a): a ``shards``-worker group over the fake store with the
+    chaos plan, under the 16-socket stream; returns its report."""
+    from binder_torch.chaos import FaultPlan
+    rng = random.Random(SEED + 4)
+    scheduled = [a for _, a, _ in FaultPlan.parse(CHAOS_PLAN).timeline]
+    procs = []
+    report = {"zone_names": hosts, "shards": shards, "plan": CHAOS_PLAN}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as tmp:
+        group_log = os.path.join(tmp, "group.log")
+        try:
+            config = write_config(
+                tmp, hosts, shards=shards, logLevel="info", rrl=CHAOS_RRL,
+                degradation={"maxStalenessSeconds": CHAOS_MAX_STALE_S,
+                             "staleTtlClampSeconds": CHAOS_TTL_CLAMP_S},
+                chaos={"plan": CHAOS_PLAN, "seed": SEED})
+            t0 = time.monotonic()
+            group = spawn(["-m", "binder_torch.main", "-f", config, "-p",
+                           "0"], group_log)
+            procs.append(group)
+            wait_line(group, group_log, rb"chaos: FaultPlan armed",
+                      "chaos: shard group", DEPLOY_BOOT_DEADLINE_S)
+            report["boot_s"] = time.monotonic() - t0
+            text = read_bytes(group_log)
+            port = int(re.search(rb"UDP DNS service started on "
+                                 rb"[\d.]+:(\d+)", text).group(1))
+            mport = int(re.search(rb"metrics server started on port "
+                                  rb"(\d+)", text).group(1))
+            first = http_json(mport, "/status")["shards"]["workers"]
+            rrl0 = sum(shard_series(mport, "binder_shard_rrl_dropped")
+                       .values())
+            seen = []
+            queries = query_mix(rng, 1 << 16, hosts)
+            t0 = time.monotonic()
+            lat, errors, retries = udp_flows(
+                port, queries, FLOWS, CONCURRENCY, check=chaos_judge(seen),
+                stop=LogWatch(group_log,
+                              b"chaos: injected restore-session",
+                              CHAOS_AFTER_S))
+            udp_s = time.monotonic() - t0
+            report.update(udp_answered=len(lat), udp_retries=retries,
+                          udp_qps=len(lat) / udp_s, stream_s=udp_s)
+            events = log_events(group_log)
+            injected = {}
+            for t, msg in events:
+                m = re.match(r"chaos: injected (\S+)", msg)
+                if m:
+                    injected.setdefault(m.group(1), []).append(t)
+            report["injected"] = sorted(injected)
+            missing = [a for a in scheduled if a not in injected]
+            if missing:
+                errors.append(f"not injected: {missing}")
+            faults = [msg for _, msg in events if re.search(
+                r"chaos.*(skipped|has no hook|found no target state|"
+                r"failed)", msg)]
+            if faults:
+                errors.append(f"chaos warnings: {faults[:5]}")
+            if "lose-session" in injected and \
+                    "restore-session" in injected:
+                report["stale"] = stale_windows(
+                    seen, injected["lose-session"][0],
+                    injected["restore-session"][0])
+                w = report["stale"]
+                if w["data_past_cap"] or w["unclamped_while_stale"]:
+                    errors.append(f"stale past the cap or unclamped: {w}")
+                if not w["stale_answers"] or not w["refusals_past_cap"]:
+                    errors.append(f"a degraded window did not show: {w}")
+            report["replies"] = {
+                "data": sum(1 for x in seen if x[1] == 0),
+                "refused": sum(1 for x in seen if x[1] != 0)}
+
+            # the roll finished; the respawned and rolled workers are
+            # the port's
+            deadline = time.monotonic() + CHAOS_DEADLINE_S
+            while True:
+                snap = http_json(mport, "/status")["shards"]
+                if snap["rolls_total"] >= 1 and \
+                        snap["rolling_shard"] is None and \
+                        snap["up"] == shards:
+                    break
+                if time.monotonic() > deadline:
+                    raise PhaseError(
+                        f"chaos: group did not settle: up {snap['up']}, "
+                        f"rolls {snap['rolls_total']}, rolling "
+                        f"{snap['rolling_shard']}")
+                time.sleep(0.2)
+            report.update({k: snap[k] for k in (
+                "respawns_total", "rolls_total", "roll_aborts",
+                "digest_checks", "digest_violations")})
+            if snap["respawns_total"] < 1 or snap["roll_aborts"]:
+                errors.append(f"respawns {snap['respawns_total']}, "
+                              f"roll aborts {snap['roll_aborts']}")
+            if snap["digest_violations"] < 1:
+                errors.append("the replica skew was not caught")
+            report["workers"] = []
+            for old, new in zip(first, snap["workers"]):
+                line = cmdline(new["pid"])
+                report["workers"].append({"shard": new["shard"],
+                                          "pid": [old["pid"], new["pid"]],
+                                          "respawns": new["respawns"],
+                                          "rolls": new["rolls"]})
+                if "-m binder_torch.main" not in line or \
+                        "binder_tpu" in line:
+                    errors.append(f"worker {new['pid']} runs {line!r}")
+            for shard in (0, 2):
+                if snap["workers"][shard]["pid"] == first[shard]["pid"]:
+                    errors.append(f"shard {shard} kept pid "
+                                  f"{first[shard]['pid']}")
+            rrl = sum(shard_series(mport, "binder_shard_rrl_dropped")
+                      .values()) - rrl0
+            report["rrl_dropped"] = rrl
+            if rrl <= 0:
+                errors.append("rrl-flood: binder_shard_rrl_dropped did "
+                              "not advance")
+
+            # after the restore every sampled name answers right again
+            t0 = time.monotonic()
+            zone_sweep(port, hosts, t0 + CHAOS_DEADLINE_S,
+                       indices=rng.sample(range(hosts),
+                                          min(CHAOS_SAMPLE, hosts)),
+                       what="chaos")
+            for name, addr in CHAOS_NAMES.items():
+                while a_addrs(fresh_ask(port, name, 7)) != [addr]:
+                    if time.monotonic() - t0 > CHAOS_DEADLINE_S:
+                        raise PhaseError(f"chaos: {name} not {addr}")
+                    time.sleep(0.1)
+            report["recovered_s"] = time.monotonic() - t0
+            report["c_lane"] = [native_reading(w["metrics_port"])
+                                for w in snap["workers"]]
+
+            live = [w["pid"] for w in snap["workers"]]
+            group.send_signal(signal.SIGTERM)
+            try:
+                report["drain_rc"] = group.wait(timeout=DRAIN_DEADLINE_S)
+            except subprocess.TimeoutExpired:
+                raise PhaseError("chaos: supervisor did not drain")
+            if report["drain_rc"] != 0:
+                errors.append(f"supervisor exited {report['drain_rc']}")
+            deadline = time.monotonic() + 10
+            while any(os.path.exists(f"/proc/{p}") for p in live):
+                if time.monotonic() > deadline:
+                    errors.append(f"workers {live} outlived the drain")
+                    break
+                time.sleep(0.05)
+            report["errors"] = len(errors)
+        except PhaseError:
+            if os.path.exists(group_log):
+                tail = read_bytes(group_log)[-4000:].decode(
+                    errors="replace")
+                log(f"--- group.log (last 4000 bytes) ---\n{tail}")
+            raise
+        finally:
+            for proc in reversed(procs):
+                reap(proc)
+        left = descendants(os.getpid())
+        report["left_after_drain"] = left
+    log(json.dumps({"chaos_group": report}))
+    if errors or left:
+        for e in errors[:20]:
+            log("chaos error: " + e)
+        raise PhaseError(f"chaos: {len(errors)} error(s), "
+                         f"{len(left)} process(es) left")
+    return report
+
+
+CHAOS_UPSTREAM_S = 10.0
+
+
+async def chaos_upstream_run(duration: float):
+    """Leg (b), in process: a server with recursion to a remote DC
+    through a ``ChaosUpstream`` (loss, then dead, then clear) while the
+    store's session is lost and restored; the invariants of the
+    degradation policy under continuous queries."""
+    from binder_torch.chaos import ChaosDriver, ChaosUpstream, FaultPlan
+    from binder_torch.dns import Message, Rcode, Type, make_query
+    from binder_torch.introspect import FlightRecorder
+    from binder_torch.metrics.collector import MetricsCollector
+    from binder_torch.recursion import Recursion, StaticResolverSource
+    from binder_torch.recursion.client import DnsClient
+    from binder_torch.server import BinderServer
+    from binder_torch.store import FakeStore, MirrorCache
+    domain = "chaos.test"
+    collector = MetricsCollector()
+    recorder = FlightRecorder(capacity=1024)
+    store = FakeStore(recorder=recorder)
+    cache = MirrorCache(store, domain, collector=collector,
+                        recorder=recorder)
+    for i in range(8):
+        store.put_json(f"/test/chaos/w{i}",
+                       {"type": "host",
+                        "host": {"address": f"10.0.2.{i + 1}"}})
+    store.start_session()
+    up_plan = FaultPlan(seed=11)
+    upstream = ChaosUpstream(up_plan,
+                             hosts={f"w.remote.{domain}": "10.9.9.9"})
+    up_port = await upstream.start()
+    recursion = Recursion(
+        zk_cache=cache, dns_domain=domain, datacenter_name="dc0",
+        source=StaticResolverSource({"remote": [f"127.0.0.1:{up_port}"]}),
+        nic_provider=lambda: [], client=DnsClient(timeout=0.25),
+        collector=collector, recorder=recorder)
+    await recursion.wait_ready()
+    max_staleness = max(0.6, duration * 0.08)
+    clamp = 5
+    server = BinderServer(
+        zk_cache=cache, dns_domain=domain, datacenter_name="dc0",
+        host="127.0.0.1", port=0, collector=collector, query_log=False,
+        flight_recorder=recorder, recursion=recursion,
+        degradation={"maxStalenessSeconds": max_staleness,
+                     "staleTtlClampSeconds": clamp},
+        admission={"maxInflight": 128})
+    await server.start()
+    plan = FaultPlan(seed=7) \
+        .at(duration * 0.10, "upstream", loss=0.4) \
+        .at(duration * 0.20, "lose-session") \
+        .at(duration * 0.25, "watch-storm", n=100) \
+        .at(duration * 0.35, "upstream", dead=1) \
+        .at(duration * 0.45, "loop-stall", ms=120) \
+        .at(duration * 0.65, "restore-session") \
+        .at(duration * 0.70, "upstream", clear=True)
+    plan.upstream = up_plan.upstream    # faults act on the live upstream
+
+    def mutate(i):
+        store.put_json(f"/test/chaos/churn{i % 4}",
+                       {"type": "host",
+                        "host": {"address": f"10.7.0.{i % 200 + 1}"}})
+
+    driver = ChaosDriver(plan, store=store, mutate=mutate,
+                         recorder=recorder)
+    chaos_task = driver.start()
+    loop = asyncio.get_running_loop()
+
+    async def ask(name, qid, rd, timeout=1.0):
+        fut = loop.create_future()
+
+        class Proto(asyncio.DatagramProtocol):
+            def connection_made(self, transport):
+                transport.sendto(make_query(name, Type.A, qid=qid,
+                                            rd=rd).encode())
+
+            def datagram_received(self, data, addr):
+                if not fut.done():
+                    fut.set_result(data)
+
+        transport, _ = await loop.create_datagram_endpoint(
+            Proto, remote_addr=("127.0.0.1", server.udp_port))
+        try:
+            return Message.decode(await asyncio.wait_for(fut, timeout))
+        finally:
+            transport.close()
+
+    pol = server._policy
+    stats = {"queries": 0, "ok": 0, "stale": 0, "refused": 0,
+             "servfail": 0, "rd_timeouts": 0,
+             "c_lane": server._fastpath is not None}
+    violations = []
+    t_end = loop.time() + duration
+    i = 0
+    try:
+        while loop.time() < t_end:
+            i += 1
+            rd = i % 5 == 0
+            name = f"w.remote.{domain}" if rd else f"w{i % 8}.{domain}"
+            stats["queries"] += 1
+            try:
+                msg = await ask(name, (i % 0xFFFF) + 1, rd)
+            except asyncio.TimeoutError:
+                if not rd:
+                    violations.append(f"local query for {name} hung")
+                stats["rd_timeouts"] += 1
+                continue
+            mode = pol.mode()
+            if msg.rcode == Rcode.NOERROR and msg.answers:
+                ds = store.disconnected_seconds()
+                if mode == "stale-exhausted" and not rd:
+                    violations.append("data served while stale-exhausted")
+                if ds is not None and not rd \
+                        and ds > max_staleness + CHAOS_SLACK_S:
+                    violations.append(f"answer {ds:.2f}s stale")
+                if mode == "stale-serving" and not rd:
+                    if any(a.ttl > clamp for a in msg.answers):
+                        violations.append("stale answer TTL not clamped")
+                    stats["stale"] += 1
+                stats["ok"] += 1
+            elif msg.rcode == Rcode.REFUSED:
+                stats["refused"] += 1
+            elif msg.rcode == Rcode.SERVFAIL:
+                stats["servfail"] += 1
+            else:
+                violations.append(f"unexpected rcode {msg.rcode}")
+            await asyncio.sleep(duration / 600.0)
+        await asyncio.wait_for(chaos_task, duration)
+        if not stats["stale"]:
+            violations.append("stale-serving window never observed")
+        if not stats["servfail"]:
+            violations.append("stale-exhausted window never observed")
+        # re-convergence: the mirror advances, the policy is fresh,
+        # the dead peer's breaker closes once it answers again
+        gen_before = cache.gen
+        store.put_json("/test/chaos/w0",
+                       {"type": "host", "host": {"address": "10.0.2.99"}})
+        if cache.gen <= gen_before:
+            violations.append("mirror generation did not advance")
+        deadline = loop.time() + 10.0
+        while loop.time() < deadline and (
+                pol.mode() != "fresh"
+                or recursion.breakers.open_count()):
+            try:
+                await ask(f"w.remote.{domain}", 9000, True)
+            except asyncio.TimeoutError:
+                pass
+            await asyncio.sleep(0.1)
+        stats["degraded_state"] = collector.get(
+            "binder_degraded_state").value()
+        stats["breakers_open"] = recursion.breakers.open_count()
+        if pol.mode() != "fresh" or stats["degraded_state"] != 0.0:
+            violations.append("degraded state did not return to fresh")
+        if stats["breakers_open"]:
+            violations.append("breakers still open after recovery")
+        msg = await ask(f"w0.{domain}", 9999, False)
+        if msg.rcode != Rcode.NOERROR or \
+                [a.address for a in msg.answers] != ["10.0.2.99"]:
+            violations.append("post-recovery answer wrong")
+        stats["upstream"] = upstream.stats()
+        stats["flight_events"] = dict(recorder.by_type)
+        stats["violations"] = violations
+        return stats
+    finally:
+        await server.stop()
+        await recursion.close()
+        await upstream.stop()
+
+
+def chaos_phase(hosts: int = HOSTS, shards: int = CHAOS_SHARDS,
+                upstream_s: float = CHAOS_UPSTREAM_S, native=None):
+    report = chaos_group_leg(hosts, shards)
+    if native is not None:
+        native["chaos"] = report["c_lane"]
+    stats = asyncio.run(chaos_upstream_run(upstream_s))
+    log(json.dumps({"chaos_upstream": stats}))
+    if stats["violations"] or not stats["c_lane"]:
+        raise PhaseError(f"chaos (upstream): {stats['violations'][:5]}, "
+                         f"C lane {stats['c_lane']}")
+
+
+# -- phase 7: aggregate -----------------------------------------------
 
 
 def reference_percentile(ordered: np.ndarray, q: float) -> np.float32:
@@ -1242,7 +2209,7 @@ def aggregate_phase(torch, latencies, sharded) -> None:
     hold_aggregate(torch, aggregate, big, "lognormal 2**24+1")
 
 
-# -- phase 5: collective ----------------------------------------------
+# -- phase 8: collective ----------------------------------------------
 
 
 def collective_phase() -> None:
@@ -1265,10 +2232,14 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--churn"]:
         return churn_main(int(sys.argv[2]), int(sys.argv[3]))
+    native = {}
     try:
         torch = device_phase()
-        latencies = serve_phase()
-        sharded = deploy_phase()
+        built = native_phase()
+        latencies = serve_phase(native=native)
+        sharded = deploy_phase(native=native)
+        balancer_phase(native=native)
+        chaos_phase(native=native)
         aggregate_phase(torch, latencies, sharded)
         collective_phase()
     except PhaseError as e:
@@ -1280,6 +2251,10 @@ def main() -> int:
         print(f"chip_smoke: FAILED: process(es) {left} would not stop",
               file=sys.stderr)
         return 1
+    log(json.dumps({"native": {
+        "build_s": built["build_s"], "compiler_s": built["compiler_s"],
+        "clean_checkout": built["clean_checkout"],
+        "lane_parity": built["parity"], "c_lane_hits": native}}))
     log(json.dumps({"kernels": []}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

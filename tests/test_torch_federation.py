@@ -27,7 +27,8 @@ from binder_torch.store.zk_testserver import ZKTestServer
 from binder_tpu.federation import DcRegistry as RefRegistry
 from binder_tpu.store import FakeStore as RefStore
 
-from tests.test_torch_recursion import SIDES, start_upstream, udp_ask
+from tests.test_torch_recursion import (SIDES, python_lane,  # noqa: F401
+                                        start_upstream, udp_ask)
 
 DOMAIN = "foo.com"
 
@@ -178,6 +179,7 @@ async def dark_run(side, fed_cfg):
     return replies, state
 
 
+@pytest.mark.usefixtures("python_lane")
 @pytest.mark.parametrize("fed_cfg,dark_rcode", [
     ({"staleTtlClampSeconds": 5}, 0),
     ({"maxStalenessSeconds": 0.0}, 2),

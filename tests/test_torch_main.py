@@ -1,9 +1,11 @@
 """Entry-point parity and import isolation for ``binder_torch``.
 
 ``python -m binder_torch.main`` and ``python -m binder_tpu.main`` boot
-from the shipped ``etc/config.json`` and must answer A, SRV and PTR the
-same way over UDP and TCP, and serve ``/status`` with the same keys; the
-port's ``/metrics`` scrape must pass ``tools.lint``'s validators.
+from the shipped ``etc/config.json``, both on the Python serve lane and
+then both on the C lane, and must answer A, SRV and PTR the same way
+over UDP and TCP, serve ``/status`` with the same keys and ``/metrics``
+with the same families; the port's scrape must pass ``tools.lint``'s
+validators.
 The processes seed their round-robin rng themselves, so for the
 rotating service names (``svc.foo.com`` A and
 ``_http._tcp.svc.foo.com`` SRV) the comparison is the header plus the
@@ -15,9 +17,9 @@ shard group, recursion, federation, config render) holds no
 ``binder_tpu``, ``jax`` or ``__graft_entry__`` module afterwards, no
 file of the port (nor ``chip_smoke.py``) imports one, only
 ``graft_entry`` imports torch (the deploy-path modules load without it),
-and a config that asks for a part not yet ported (chaos) fails naming
-the port's module instead of running reference code, leaving no shard
-worker behind.
+and a config with a ``chaos`` block runs the port's fault injection in
+a shard group whose respawned worker is the port's, leaving no process
+behind.
 
 ``chip_smoke.py`` must stop every process it starts, the resource
 tracker that spawning the collective's ranks brings up included.
@@ -28,6 +30,7 @@ import glob
 import json
 import os
 import re
+import signal
 import socket
 import struct
 import subprocess
@@ -36,6 +39,7 @@ import time
 import urllib.request
 
 from binder_torch.dns import wire
+from tests.test_torch_fastio import LANE_MAIN
 from tools import lint
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,10 +52,10 @@ QUERIES = [("web.foo.com", T.A), ("svc.foo.com", T.A),
            ("1.1.0.10.in-addr.arpa", T.PTR), ("nope.foo.com", T.A)]
 
 
-def boot(package):
+def boot(package, lane):
     proc = subprocess.Popen(
-        [sys.executable, "-m", f"{package}.main", "-f", "etc/config.json",
-         "-p", "0"],
+        [sys.executable, "-c", LANE_MAIN, lane, package, "-f",
+         "etc/config.json", "-p", "0"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     buf = b""
     deadline = time.monotonic() + 60
@@ -101,10 +105,10 @@ def key_tree(obj):
     return type(obj).__name__ if obj is not None else None
 
 
-def test_main_answers_like_reference():
+def answers_like_reference(lane):
     replies, status, scrape = {}, {}, {}
     for package in ("binder_torch", "binder_tpu"):
-        proc, port, mport = boot(package)
+        proc, port, mport = boot(package, lane)
         try:
             replies[package] = [ask(port, name, qtype, transport)
                                 for name, qtype in QUERIES
@@ -135,6 +139,22 @@ def test_main_answers_like_reference():
     assert lint.validate_status_snapshot(status["binder_torch"]) == []
     assert lint.validate_exposition(scrape["binder_torch"]) == []
     assert lint.validate_rrl_metrics(scrape["binder_torch"]) == []
+    families = {
+        package: sorted(line.split()[2] for line in text.splitlines()
+                        if line.startswith("# TYPE"))
+        for package, text in scrape.items()}
+    assert families["binder_torch"] == families["binder_tpu"]
+    return families["binder_torch"]
+
+
+def test_main_answers_like_reference():
+    # both packages pinned to the Python serve lane
+    assert "binder_fastpath_entries" not in answers_like_reference("python")
+
+
+def test_main_answers_like_reference_on_the_c_lane():
+    # both packages on the C lane, built by the port from native/
+    assert "binder_fastpath_entries" in answers_like_reference("native")
 
 
 #: the modules a shard worker or the supervisor loads on the deploy
@@ -258,9 +278,10 @@ def test_chip_smoke_stops_every_process_it_starts():
     assert got["left"] == [] and got["after"] == []
 
 
-def test_unported_parts_fail_naming_the_port(tmp_path):
-    # chaos is the part still to port: the supervisor fails naming the
-    # port's module, and its workers go with it
+def test_chaos_block_boots_on_the_port(tmp_path):
+    # a ``chaos`` block runs the port's ChaosDriver in the supervisor:
+    # the scripted kill lands, the worker comes back as the port, and
+    # SIGTERM leaves no process of the group behind
     config = tmp_path / "chaos.json"
     config.write_text(json.dumps({
         "dnsDomain": "foo.com", "host": "127.0.0.1", "shards": 2,
@@ -269,15 +290,12 @@ def test_unported_parts_fail_naming_the_port(tmp_path):
                   "fixture": os.path.join(ROOT, "etc", "fixture.json")},
         "chaos": {"plan": "at 1 shard-kill shard=0"}}))
     tag = f"chaos-probe-{os.getpid()}-{time.monotonic_ns()}"
-    proc = subprocess.run(
-        [sys.executable, "-m", "binder_torch.main", "-f", str(config),
-         "-p", "0"], cwd=ROOT, capture_output=True, timeout=60,
-        env=dict(os.environ, BINDER_TEST_TAG=tag))
-    out = proc.stdout.decode() + proc.stderr.decode()
-    assert proc.returncode != 0
-    assert "No module named 'binder_torch.chaos'" in out
-    assert "all 2 shard(s) serving" in out   # the workers had started
-    assert "binder_tpu" not in out
+    log_path = tmp_path / "group.log"
+    with open(log_path, "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "binder_torch.main", "-f", str(config),
+             "-p", "0"], cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+            env=dict(os.environ, BINDER_TEST_TAG=tag))
 
     def tagged():
         found = []
@@ -289,6 +307,42 @@ def test_unported_parts_fail_naming_the_port(tmp_path):
             except (OSError, ValueError):
                 continue
         return found
+
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            text = log_path.read_bytes().decode()
+            m = re.search(r"metrics server started on port (\d+)", text)
+            if m and "chaos: injected shard-kill" in text and \
+                    "all 2 shard(s) serving" in text:
+                break
+            assert proc.poll() is None, text[-3000:]
+            assert time.monotonic() < deadline, text[-3000:]
+            time.sleep(0.05)
+        killed = int(re.search(r"shard 0: sent signal 9 to pid (\d+)",
+                               text).group(1))
+        while True:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{m.group(1)}/status",
+                    timeout=5) as r:
+                w0 = json.load(r)["shards"]["workers"][0]
+            if w0["pid"] not in (None, killed) and w0["up"]:
+                break
+            assert time.monotonic() < deadline, w0
+            time.sleep(0.1)
+        with open(f"/proc/{w0['pid']}/cmdline", "rb") as f:
+            line = f.read().replace(b"\0", b" ").decode()
+        assert "-m binder_torch.main" in line and "--shard-worker 0" in line
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=20) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = log_path.read_bytes().decode()
+    assert "chaos: FaultPlan armed (1 scheduled action(s), 1.0s)" in text
+    assert "binder_tpu" not in text
+    assert "skipped" not in text and "Traceback" not in text
     deadline = time.monotonic() + 10
     while tagged():
         assert time.monotonic() < deadline, tagged()

@@ -32,6 +32,7 @@ import ssl
 import pytest
 
 from binder_torch import server as port_server
+from binder_torch.dns import server as port_dns_server
 from binder_torch.dns import wire as port_wire
 from binder_torch.federation import Federation as PortFederation
 from binder_torch.metrics.collector import MetricsCollector as PortMetrics
@@ -44,6 +45,7 @@ from binder_torch.recursion import ufds as port_ufds
 from binder_torch.store import FakeStore as PortStore
 from binder_torch.store import MirrorCache as PortCache
 from binder_tpu import server as ref_server
+from binder_tpu.dns import server as ref_dns_server
 from binder_tpu.dns import wire as ref_wire
 from binder_tpu.federation import Federation as RefFederation
 from binder_tpu.metrics.collector import MetricsCollector as RefMetrics
@@ -56,6 +58,7 @@ from binder_tpu.recursion import ufds as ref_ufds
 from binder_tpu.store import FakeStore as RefStore
 from binder_tpu.store import MirrorCache as RefCache
 
+from tests.test_torch_fastio import pin_python_lane
 from tests.test_torch_zk import Recorder
 from tests.test_ufds import RESOLVER_ENTRIES, tls_pki  # noqa: F401
 
@@ -79,6 +82,14 @@ SIDES = {
                 ber=ref_ber, ufds=ref_ufds, ldap=ref_ldap,
                 store=RefStore, cache=RefCache),
 }
+
+
+@pytest.fixture
+def python_lane(monkeypatch):
+    """Both packages' servers on the Python serve lane: the port builds
+    its C lane at first use, the reference has none in this tree."""
+    pin_python_lane(monkeypatch, (port_server, port_dns_server),
+                    (ref_server, ref_dns_server))
 
 
 # -- BER and filters ---------------------------------------------------
@@ -373,6 +384,7 @@ async def forward_run(side, query_log):
     return replies, east.got, west.got
 
 
+@pytest.mark.usefixtures("python_lane")
 @pytest.mark.parametrize("query_log", [False, True],
                          ids=["spliced", "rebuilt"])
 def test_forwarded_replies_byte_identical(query_log):
@@ -455,6 +467,7 @@ async def budget_run(side):
         len(dark.got)
 
 
+@pytest.mark.usefixtures("python_lane")
 def test_budget_and_breaker_accounting_identical():
     got = {side: asyncio.run(budget_run(side)) for side in SIDES}
     assert got["port"] == got["ref"]

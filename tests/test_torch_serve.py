@@ -41,6 +41,7 @@ from binder_tpu.policy import rrl as ref_rrl
 from binder_tpu.store import FakeStore as RefStore
 from binder_tpu.store import MirrorCache as RefMirror
 from binder_tpu.store.fake import populate_synthetic
+from tests.test_torch_fastio import pin_python_lane
 from tools import lint
 from tools.hostile import read_corpus
 
@@ -65,15 +66,12 @@ CONFIGS = {
 
 @pytest.fixture(autouse=True)
 def python_lane(monkeypatch):
-    """Pin both packages to the Python serve lane: a native build of
-    the reference's optional ``_binderfastio`` must not give it the C
-    lane while the port (which has none yet) serves in Python."""
-    for mod in (port_server, port_dns_server, ref_server, ref_dns_server):
-        monkeypatch.setattr(mod, "_fastio", None)
-    for mod in (port_dns_server, ref_dns_server):
-        for name in ("_fp_serve_wire", "_fp_serve_frames",
-                     "_fp_serve_balancer"):
-            monkeypatch.setattr(mod, name, None)
+    """Pin both packages to the Python serve lane: the port builds its
+    C lane at first use, and a native build of the reference's
+    ``_binderfastio`` would give it one too; the C lane is held to the
+    Python lane by ``test_torch_fastio.py``."""
+    pin_python_lane(monkeypatch, (port_server, port_dns_server),
+                    (ref_server, ref_dns_server))
 
 
 def server_kwargs(options):

@@ -48,6 +48,7 @@ from binder_tpu.shard import protocol as ref_proto
 from binder_tpu.shard import supervisor as ref_sup
 from binder_tpu.store import FakeStore as RefStore
 from binder_tpu.store import MirrorCache as RefCache
+from tests.test_torch_fastio import LANE_MAIN
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DOMAIN = "foo.com"
@@ -311,8 +312,11 @@ def boot(args, log_path, pattern, env=None, deadline_s=60.0):
 
 
 def boot_binder(package, config, log_path):
-    proc, text = boot(["-m", f"{package}.main", "-f", config, "-p", "0"],
-                      log_path, rb"TCP DNS service started on [\d.]+:\d+")
+    # on the C lane: the port's workers load the extension the port
+    # builds, and the reference is given the same build
+    proc, text = boot(["-c", LANE_MAIN, "native", package, "-f", config,
+                       "-p", "0"], log_path,
+                      rb"TCP DNS service started on [\d.]+:\d+")
     udp = int(re.search(rb"UDP DNS service started on [\d.]+:(\d+)",
                         text).group(1))
     mport = int(re.search(rb"metrics server started on port (\d+)",
