@@ -34,7 +34,11 @@ reference and stay stdlib-only; ``torch`` is imported only by
 - ``binder_torch._binderfastio`` — the native fast path, built at first
                                use from ``native/fastio/`` by
                                ``binder_torch.fastio_build`` (which also
-                               builds the ``mbalancer`` binary).
+                               builds the ``mbalancer`` and
+                               ``instance_adjust`` binaries).
+- ``binder_torch.topology``  — the shipped topology: N servers under
+                               ``instance_adjust`` behind ``mbalancer``
+                               (port of ``bin/binder-topology``).
 - ``binder_torch.graft_entry`` — the latency summary (mean, p50, p99) and
                                the data-parallel all-reduce, on the GPU.
 

@@ -1000,12 +1000,17 @@ class DnsServer:
         log = self.log
         burst = self._UDP_BURST
         batch_out: List[Optional[list]] = [None]  # non-None while draining
-        # RRL duty-cycle sampling tick (see ResponseRateLimiter): a
-        # cache-hit flood served entirely inside fastpath_drain would
-        # never reach rrl.decide() to trip hot(), so while the gate is
-        # open every Nth readiness event drains through Python with
-        # decide() charging N tokens per sampled packet
-        rrl_tick = [0]
+        # RRL sampling credit (see ResponseRateLimiter): a cache-hit
+        # flood served entirely inside fastpath_drain would never reach
+        # rrl.decide() to trip hot(), so while the gate is open the
+        # drain alternates: one recv_batch through Python, decide()
+        # charging N tokens per packet, earns the C drain N - 1 packets
+        # (served or declined) per packet sampled.  Counted in packets, not readiness events,
+        # so a burst that lands in one event is sampled like the same
+        # burst spread over many.  The first sample is the Nth packet,
+        # as it was the Nth event when the count was in events.
+        rrl_credit = [self.rrl.FASTPATH_SAMPLE_EVERY - 1
+                      if self.rrl is not None else 0]
         # Late (async-completed) responses — the recursion path — are
         # coalesced per event-loop pass into one sendmmsg instead of a
         # sendto syscall each: upstream answers arrive in batches on the
@@ -1048,29 +1053,33 @@ class DnsServer:
                            or self.fastpath_gate()))
             fp_gen = self.fastpath_gen
             rrl = self.rrl
-            if rrl is not None:
-                rrl.sample_cost = 1.0
-                if use_fp:
-                    rrl_tick[0] += 1
-                    if rrl_tick[0] >= rrl.FASTPATH_SAMPLE_EVERY:
-                        rrl_tick[0] = 0
-                        use_fp = False
-                        rrl.sample_cost = float(rrl.FASTPATH_SAMPLE_EVERY)
             try:
                 drained = 0
                 while drained < burst:
                     served = 0
+                    want = 64
+                    sample = (use_fp and rrl is not None
+                              and rrl_credit[0] <= 0)
                     try:
-                        if use_fp:
+                        if use_fp and not sample:
+                            if rrl is not None:
+                                want = min(want, rrl_credit[0])
                             msgs, served = fp_drain(
-                                fp, fd, fp_gen() if fp_gen else 0, 64)
+                                fp, fd, fp_gen() if fp_gen else 0, want)
+                            if rrl is not None:
+                                rrl_credit[0] -= len(msgs) + served
                         else:
-                            msgs = recv_batch(fd, 64)
+                            msgs = recv_batch(fd, want)
                     except OSError as e:
                         log.error("UDP socket error: %s", e)
                         break
                     if not msgs and not served:
                         break
+                    if rrl is not None:
+                        every = rrl.FASTPATH_SAMPLE_EVERY
+                        rrl.sample_cost = float(every) if sample else 1.0
+                        if sample:
+                            rrl_credit[0] += (every - 1) * len(msgs)
                     drained += len(msgs) + served
                     for data, addr in msgs:
                         def send(wire: bytes, _addr=addr) -> None:
@@ -1088,9 +1097,11 @@ class DnsServer:
                             # flush of other clients' responses
                             log.exception("unhandled error processing "
                                           "packet from %s", addr)
-                    if len(msgs) + served < 64:
+                    if len(msgs) + served < want:
                         break
             finally:
+                if rrl is not None:
+                    rrl.sample_cost = 1.0
                 # flush in finally so responses already produced are
                 # never lost to an unexpected escape above
                 batch_out[0] = None
@@ -1257,22 +1268,50 @@ class DnsServer:
 
     # -- balancer backend socket (docs/balancer-protocol.md) --
 
-    async def listen_balancer(self, path: str) -> None:
+    async def listen_balancer(self, path: str, ready) -> None:
+        """Serve the balancer on the UNIX socket ``path``.
+
+        The socket is bound at once (a supervisor waiting for the file
+        sees the instance up) but listens only once ``ready()`` is
+        true: until then the balancer's connects are refused, and it
+        keeps its clients on the other backends instead of handing
+        them to a server that cannot answer yet."""
         # raw listener + raw per-link sockets, not asyncio streams: the
         # direct-return fd pass arrives as SCM_RIGHTS ancillary data,
         # which the stream protocol machinery silently discards
         loop = asyncio.get_running_loop()
         lsock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        join_now = ready()
         try:
             lsock.setblocking(False)
             lsock.bind(path)
-            lsock.listen(64)
+            if join_now:
+                lsock.listen(64)
         except OSError:
             lsock.close()
             raise
+        self._unix_servers.append((loop, lsock, path))
+        if join_now:
+            self._serve_balancer(lsock, path, loop)
+            return
+        self.log.info("balancer socket %s bound; joining the balancer "
+                      "once the mirror holds the zone", path)
+        task = loop.create_task(self._join_balancer(ready, lsock, path,
+                                                    loop))
+        self._tasks.add(task)
+        task.add_done_callback(self._tasks.discard)
+
+    async def _join_balancer(self, ready, lsock: socket.socket, path: str,
+                             loop) -> None:
+        while not ready():
+            await asyncio.sleep(0.1)
+        lsock.listen(64)
+        self._serve_balancer(lsock, path, loop)
+
+    def _serve_balancer(self, lsock: socket.socket, path: str,
+                        loop) -> None:
         loop.add_reader(lsock.fileno(), self._on_balancer_accept, lsock,
                         loop)
-        self._unix_servers.append((loop, lsock, path))
         self.log.info("balancer service started on %s", path)
 
     def _on_balancer_accept(self, lsock: socket.socket, loop) -> None:

@@ -2,12 +2,14 @@
 
 The counterpart of ``native/Makefile``'s rules for the fast-path
 extension (``native/fastio/{fastio,fastpath}.c`` into
-``_binderfastio<EXT_SUFFIX>``) and the ``mbalancer`` binary
-(``native/balancer/mbalancer.cpp``), with the same compilers and
-flags.  The artifacts go into ``binder_torch/_build/`` (git-ignored),
-one directory per artifact and cache key; the key hashes the bytes of
-every source and header, the command line and the interpreter's ABI
-suffix, so a changed source rebuilds and an unchanged one is found.
+``_binderfastio<EXT_SUFFIX>``), the ``mbalancer`` binary
+(``native/balancer/mbalancer.cpp``) and the ``instance_adjust``
+reconciler (``native/adjust/instance_adjust.cpp``), with the same
+compilers and flags.  The artifacts go into ``binder_torch/_build/``
+(git-ignored), one directory per artifact and cache key; the key
+hashes the bytes of every source and header, the command line and the
+interpreter's ABI suffix, so a changed source rebuilds and an
+unchanged one is found.
 
 Many processes may reach the first use at once (a shard supervisor
 and its workers, test workers): the build runs under an ``fcntl``
@@ -69,6 +71,9 @@ ARTIFACTS = {
         cpp=False, python=True),
     "mbalancer": Artifact(
         "mbalancer", ("balancer/mbalancer.cpp",), ("common/dnskey.h",),
+        cpp=True, python=False),
+    "instance_adjust": Artifact(
+        "instance_adjust", ("adjust/instance_adjust.cpp",), (),
         cpp=True, python=False),
 }
 

@@ -38,13 +38,17 @@ Mechanics, mirroring `AdmissionControl`'s house style:
   limiter then sheds at its own (cheap, decode-free) ingress.
 - Detection under the fastpath: a cache-hit flood answered entirely
   in C would never reach `decide()` to trip ``hot()`` in the first
-  place.  The batched UDP reader therefore **duty-cycle samples**
-  while the gate is open: every ``FASTPATH_SAMPLE_EVERY``-th
-  readiness event drains through Python with ``sample_cost`` set to
-  the sampling factor, so each sampled packet charges its prefix what
-  the unsampled stream would have.  A flooded prefix overdraws within
-  a bucket-burst of sampled traffic → ``hot()`` → gate shut → full
-  per-packet judgment until the flood subsides.
+  place.  The batched UDP reader therefore **samples by packet
+  count** while the gate is open: one ``recv_batch`` drains through
+  Python with ``sample_cost`` set to ``FASTPATH_SAMPLE_EVERY``, and
+  each packet so judged lets the C drain serve
+  ``FASTPATH_SAMPLE_EVERY - 1`` more, so each sampled packet charges
+  its prefix what the unsampled stream would have.  Counting packets
+  rather than readiness events means a burst that lands in a single
+  event is sampled like the same burst spread over many.  A flooded
+  prefix overdraws within a bucket-burst of sampled traffic →
+  ``hot()`` → gate shut → full per-packet judgment until the flood
+  subsides.
 
 The limiter judges the packet *before* decode on the UDP lane, so
 malformed floods are shed at the same price as well-formed ones.
@@ -108,9 +112,9 @@ class ResponseRateLimiter:
     #: long enough to hold the fastpath gate shut across flood bursts,
     #: short enough that the gate reopens promptly once the flood ends
     HOT_HOLD_S = 2.0
-    #: while the fastpath gate is open, 1 in this many UDP readiness
-    #: events surfaces to Python so the limiter samples the C-served
-    #: stream (each sampled packet charged this many tokens)
+    #: while the fastpath gate is open, 1 in this many UDP packets
+    #: surfaces to Python so the limiter samples the C-served stream
+    #: (each sampled packet charged this many tokens)
     FASTPATH_SAMPLE_EVERY = 8
     #: adapted-prefix records tracked at once — entries exist only for
     #: prefixes that completed a TCP serve while limited, so spoofed
@@ -171,7 +175,7 @@ class ResponseRateLimiter:
         self._hot_until = 0.0
         self._flood_event_last = 0.0
         #: tokens one decide() charges; the batched UDP reader raises
-        #: it to FASTPATH_SAMPLE_EVERY during sampled drain events so
+        #: it to FASTPATH_SAMPLE_EVERY for the batches it samples so
         #: the sampled stream approximates the true per-prefix rate
         self.sample_cost = 1.0
         # fold-ready plain-int counters (scrape-time fold pattern)

@@ -2183,7 +2183,12 @@ class BinderServer:
             self._precompiler.seed_mirror()
         self._zone_fill()
         if self.balancer_socket:
-            await self.engine.listen_balancer(self.balancer_socket)
+            # join the balancer only with the whole zone mirrored: a
+            # server restarted under it inherits its predecessor's
+            # clients at once, and would answer them REFUSED or
+            # SERVFAIL for every name its walk has not reached yet
+            await self.engine.listen_balancer(
+                self.balancer_socket, ready=self.zk_cache.synced)
         # UDP and TCP must share one port number (the reference serves
         # both on the same port, lib/server.js:643-653).  With port=0
         # the kernel picks the UDP port and any unrelated socket may

@@ -519,6 +519,13 @@ class MirrorCache:
     def is_ready(self) -> bool:
         return self.domain in self.nodes
 
+    def synced(self) -> bool:
+        """True once the mirror holds the store's tree: a session's
+        walk has started, no rebuild chunk is pending, and the store
+        has no fetch outstanding."""
+        return (self.is_ready() and not self.rebuild_pending()
+                and not self.store.syncing())
+
     def staleness_seconds(self) -> Optional[float]:
         """Age of the last applied change (mutation or full rebuild).
 

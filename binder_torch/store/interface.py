@@ -247,5 +247,10 @@ class StoreClient:
     def is_connected(self) -> bool:
         raise NotImplementedError
 
+    def syncing(self) -> bool:
+        """True while a fetch for a watched path is outstanding.  The
+        default suits stores that deliver state synchronously."""
+        return False
+
     def close(self) -> None:
         raise NotImplementedError

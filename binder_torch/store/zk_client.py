@@ -214,6 +214,12 @@ class ZKClient(SessionStateMixin, StoreClient):
         # the node from its index, so a later one-shot watch event for
         # the path dispatches to nothing and is dropped
 
+    def syncing(self) -> bool:
+        """True while a watched path's fetch is outstanding (the
+        mirror's walk, or a change being fetched)."""
+        # every task but the connected session's ping loop is a fetch
+        return len(self._tasks) > (1 if self._connected else 0)
+
     def is_connected(self) -> bool:
         """True only while a live session is established.  The bool
         cannot distinguish "never connected" from "session lost" — use

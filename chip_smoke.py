@@ -10,13 +10,14 @@ it started and exits non-zero without printing the ``ok`` line:
 
 1. device: require CUDA; print the card's name and power limit.
 2. native: build the port's native code from ``native/`` (the fast-path
-   extension ``_binderfastio`` and the ``mbalancer`` binary, through
-   ``binder_torch.fastio_build``) and print the seconds each build
-   took; check the extension loaded from the port's build directory
-   with every function; replay a seeded query mix through one
-   in-process ``BinderServer`` on the C lane and again on the Python
-   lane and hold the replies byte for byte (multi-record answers by
-   record set: the lanes rotate independently).
+   extension ``_binderfastio``, the ``mbalancer`` binary and the
+   ``instance_adjust`` reconciler, through ``binder_torch.fastio_build``)
+   and print the seconds each build took; check the extension loaded
+   from the port's build directory with every function; replay a
+   seeded query mix through one in-process ``BinderServer`` on the C
+   lane and again on the Python lane and hold the replies byte for
+   byte (multi-record answers by record set: the lanes rotate
+   independently).
 3. serve: boot ``python -m binder_torch.main`` on a 100,000-name
    synthetic zone plus the shipped fixture and a 64-instance service,
    send a seeded A/PTR/SRV mix over UDP (concurrency 64) and TCP, and
@@ -40,7 +41,19 @@ it started and exits non-zero without printing the ``ok`` line:
    balancer's UDP and TCP port; every answer right, every backend
    serving, direct return negotiated and used, the backends' C lanes
    serving; SIGTERM to every process leaves nothing.
-6. chaos: (a) a 4-worker group over the fake store at the serve
+6. topology: the shipped topology in its production posture.
+   ``python -m binder_torch.topology start`` puts 4 port servers, each
+   with its own ZooKeeper session and mirror of the deploy phase's
+   zone, under ``instance_adjust`` behind ``mbalancer`` (answer cache
+   on), from the shipped ``etc/config.json`` with the query log on;
+   half of them relay through the balancer (so its cache is in the
+   path) and half answer on direct return.  The serve mix from 16
+   client addresses and TCP, churn probed from 16 more, one backend
+   SIGKILLed and restored by ``topology start``: every answer right,
+   every write read back through the cache, every backend serving on
+   its C lane and logging one line per query it completed; ``topology
+   stop`` leaves nothing.
+7. chaos: (a) a 4-worker group over the fake store at the serve
    phase's zone with a ``chaos`` block scripting every supervisor-side
    fault, under the 16-socket stream: every query answered or refused,
    nothing stale past the cap, every action injected, the respawned
@@ -49,10 +62,10 @@ it started and exits non-zero without printing the ``ok`` line:
    under loss, then a dead peer, then recovery, with the store's
    session lost and restored: stale within the cap, SERVFAIL past it,
    and re-convergence.
-7. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
+8. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
    over the serve and deploy latencies and over a seeded 2**24 + 1
    batch, held against numpy.
-8. collective: the data-parallel mean over NCCL on the one card.
+9. collective: the data-parallel mean over NCCL on the one card.
 
 The port has no hand-written GPU kernel (the JAX package has no Pallas
 kernel to port; the native code is host code), so the kernel line is
@@ -282,7 +295,7 @@ def native_phase(hosts: int = HOSTS):
     C lane against the Python lane; returns the report."""
     from binder_torch import fastio_build
     report = {"build_s": {}, "compiler_s": {}, "clean_checkout": {}}
-    for name in ("extension", "mbalancer"):
+    for name in ("extension", "mbalancer", "instance_adjust"):
         report["clean_checkout"][name] = not os.path.exists(
             fastio_build.artifact_path(name))
         t0 = time.monotonic()
@@ -473,6 +486,19 @@ def reap(proc) -> None:
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait(timeout=10)
+
+
+def check_phase(phase: str, errors, left) -> None:
+    """Log a phase's errors and fail it if it had any or left a
+    process; the failure line names the first error, since it may be
+    the only line of the run a reader sees."""
+    if not errors and not left:
+        return
+    for e in errors[:20]:
+        log(f"{phase} error: " + e)
+    raise PhaseError(f"{phase}: {len(errors)} error(s), "
+                     f"{len(left)} process(es) left"
+                     + (f"; first: {errors[0]}" if errors else ""))
 
 
 def descendants(pid: int):
@@ -894,14 +920,20 @@ def deploy_config(tmp: str, zk_port: int, dc1_port: int,
         # self-address filter that covers 127.0.0.1)
         "recursion.ufds": {"dcs": {"dc1": [f"127.0.0.2:{dc1_port}"]}},
     }
+    return write_overridden(options, overrides,
+                            os.path.join(tmp, "deploy.json"), "deploy")
+
+
+def write_overridden(options, overrides, path: str, what: str) -> str:
+    """Write ``options`` with each dotted key of ``overrides`` set,
+    printing every override; return ``path``."""
     for key, value in overrides.items():
         *parents, leaf = key.split(".")
         node = options
         for name in parents:
             node = node[name]
         node[leaf] = value
-        log(f"deploy override: {key} = {json.dumps(value)}")
-    path = os.path.join(tmp, "deploy.json")
+        log(f"{what} override: {key} = {json.dumps(value)}")
     with open(path, "w") as f:
         json.dump(options, f)
     return path
@@ -978,16 +1010,17 @@ def wait_everywhere(port: int, name: str, addr: str, flows: int,
 
 
 def zone_sweep(port: int, hosts: int, deadline: float,
-               indices=None, what: str = "deploy") -> None:
+               indices=None, what: str = "deploy", sources=None) -> None:
     """Ask every host's A record (or those of ``indices``) over
-    ``FLOWS`` sockets, again and again for the ones not yet right,
-    until all are or ``deadline``."""
+    ``FLOWS`` sockets (bound to ``sources`` when given), again and
+    again for the ones not yet right, until all are or ``deadline``."""
     racks = max(1, min(1024, hosts // 512))
     todo = list(range(hosts)) if indices is None else list(indices)
     while todo:
         queries = [(host_name(i, racks), 1, ("a", {host_addr(i)}))
                    for i in todo]
-        _, errors, _ = udp_flows(port, queries, FLOWS, CONCURRENCY)
+        _, errors, _ = udp_flows(port, queries, FLOWS, CONCURRENCY,
+                                 sources=sources)
         wrong = {e.split(":")[0] for e in errors}
         todo = [i for i in todo if host_name(i, racks) in wrong]
         if todo and time.monotonic() > deadline:
@@ -1128,12 +1161,17 @@ def probe_until(socks, name: str, want_w: int, k: int,
     return True
 
 
-def churn_main(zk_port: int, dns_port: int) -> int:
+def churn_main(zk_port: int, dns_port: int, sources=None) -> int:
+    """Rewrite the churn names at about 500 writes/s and probe each
+    write back from ``FLOWS`` sockets (bound to ``sources`` when given:
+    behind the balancer, each client address reaches one backend)."""
     import asyncio
     import threading
     socks = []
-    for _ in range(FLOWS):
+    for k in range(FLOWS):
         s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        if sources is not None:
+            s.bind((sources[k], 0))
         s.connect(("127.0.0.1", dns_port))
         s.setblocking(False)
         socks.append(s)
@@ -1493,11 +1531,7 @@ def deploy_phase(hosts: int = HOSTS, n_udp: int = DEPLOY_UDP,
     report.update(udp_p50_us=float(pct[0]), udp_p99_us=float(pct[1]),
                   python_lane_before=PYTHON_LANE_READINGS["deploy"])
     log(json.dumps({"deploy": report}))
-    if errors or left:
-        for e in errors[:20]:
-            log("deploy error: " + e)
-        raise PhaseError(f"deploy: {len(errors)} error(s), "
-                         f"{len(left)} process(es) left")
+    check_phase("deploy", errors, left)
     return lat
 
 
@@ -1664,15 +1698,525 @@ def balancer_phase(hosts: int = HOSTS, n_udp: int = BALANCER_UDP,
         if lat else [float("nan")] * 2
     report.update(udp_p50_us=float(pct[0]), udp_p99_us=float(pct[1]))
     log(json.dumps({"balancer": report}))
-    if errors or left:
-        for e in errors[:20]:
-            log("balancer error: " + e)
-        raise PhaseError(f"balancer: {len(errors)} error(s), "
-                         f"{len(left)} process(es) left")
+    check_phase("balancer", errors, left)
     return lat
 
 
-# -- phase 6: chaos ---------------------------------------------------
+# -- phase 6: topology ------------------------------------------------
+
+TOPOLOGY_BACKENDS = 4
+TOPOLOGY_UDP = 60_000
+TOPOLOGY_BOOT_DEADLINE_S = 300.0
+#: one ``python -m binder_torch.topology`` command (``instance_adjust
+#: -w`` waits up to 60 s for each instance)
+TOPOLOGY_CALL_S = 300.0
+#: the churn process's probe addresses: the balancer deals each new
+#: client address to one backend, so 16 reach all of them
+CHURN_CLIENTS = [f"127.0.2.{k + 1}" for k in range(FLOWS)]
+#: addresses first seen after the re-converge, dealt round-robin over
+#: every backend, the restored one too
+FRESH_CLIENTS = [f"127.0.3.{k + 1}" for k in range(FLOWS)]
+#: hosts each backend is asked directly before the stream, and after
+#: its restore
+TOPOLOGY_SAMPLE = 1_000
+TOPOLOGY_FRESH_UDP = 2_000
+#: the write the restored backend must serve
+POSTKILL_ADDR = "10.203.0.1"
+
+
+def port_free(port: int) -> bool:
+    """True when nothing holds ``port`` over UDP or TCP."""
+    for kind in (socket.SOCK_DGRAM, socket.SOCK_STREAM):
+        with socket.socket(socket.AF_INET, kind) as s:
+            try:
+                s.bind(("0.0.0.0", port))
+            except OSError:
+                return False
+    return True
+
+
+def free_base(n: int) -> int:
+    """A base port ``B`` with ``B .. B+n-1`` and their metrics ports
+    (each + 1000) free, below the kernel's ephemeral range."""
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(20_000, 29_000)
+        if all(port_free(p) for k in range(n)
+               for p in (base + k, base + 1000 + k)):
+            return base
+    raise PhaseError("topology: no free range of ports")
+
+
+def topology(*args: str, env=None):
+    """``python -m binder_torch.topology <args>``: its exit code and
+    what it printed."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "binder_torch.topology", *args], cwd=ROOT,
+        capture_output=True, text=True, timeout=TOPOLOGY_CALL_S, env=env)
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+def topology_config(tmp: str, zk_port: int) -> str:
+    """The shipped ``etc/config.json`` over the port's ZooKeeper
+    server, plus only what loopback needs; each override is printed.
+    ``queryLog`` stays unset: the query log is on, as shipped."""
+    with open(os.path.join(ROOT, "etc", "config.json")) as f:
+        options = json.load(f)
+    if "queryLog" in options:
+        raise PhaseError("topology: etc/config.json sets queryLog")
+    overrides = {
+        "store": {"backend": "zookeeper", "host": "127.0.0.1",
+                  "port": zk_port},
+        "host": "127.0.0.1", "rrl.allowlist": ["127.0.0.0/8"],
+        "logLevel": "info",
+    }
+    return write_overridden(options, overrides,
+                            os.path.join(tmp, "topology.json"), "topology")
+
+
+def pid_running(pid: int) -> bool:
+    """True while ``pid`` exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(") ", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def read_int(path: str) -> int:
+    with open(path) as f:
+        return int(f.read().strip())
+
+
+def wait_balancer(sockdir: str, backends: int, direct: int,
+                  deadline: float):
+    """The balancer's stats once ``backends`` backends are healthy and
+    ``direct`` of them answer over the passed socket."""
+    while True:
+        try:
+            stats = balancer_stats(sockdir)
+            up = [b for b in stats["backends"] if b["healthy"]]
+            if len(up) == backends and \
+                    sum(bool(b.get("direct")) for b in up) == direct:
+                return stats
+        except (OSError, ValueError):
+            up = []
+        if time.monotonic() > deadline:
+            raise PhaseError(f"topology: {len(up)} healthy backend(s), "
+                             f"expected {backends} ({direct} direct)")
+        time.sleep(0.1)
+
+
+def forwarded_by(stats, base: int):
+    """``{instance index: forwarded}`` from the balancer's stats."""
+    return {int(os.path.basename(b["path"])) - base: b["forwarded"]
+            for b in stats["backends"]}
+
+
+def wait_host(port: int, i: int, hosts: int, deadline: float) -> None:
+    """Ask host ``i`` of port ``port`` until it answers right."""
+    name = host_name(i, max(1, min(1024, hosts // 512)))
+    while True:
+        reply = fresh_ask(port, name, 1, required=False)
+        if reply is not None and a_addrs(reply) == [host_addr(i)]:
+            return
+        if time.monotonic() > deadline:
+            raise PhaseError(f"topology: {name} not served on :{port}")
+        time.sleep(0.05)
+
+
+def replies_from(port: int, name: str, sources):
+    """The reply to one A query for ``name`` from each address of
+    ``sources`` (asked up to three times; None when none came)."""
+    from binder_torch.dns import Type, make_query
+    out = []
+    for k, src in enumerate(sources):
+        q = make_query(name, Type.A, qid=0x300 + k).encode()
+        got = None
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            s.bind((src, 0))
+            s.settimeout(REPLY_STALL_S / 5)
+            for _ in range(3):
+                s.sendto(q, ("127.0.0.1", port))
+                try:
+                    got = s.recv(65535)
+                    break
+                except socket.timeout:
+                    continue
+        out.append(got)
+    return out
+
+
+def absent_checks(ports):
+    """A name the zone lacks, asked three times of each server on its
+    own port (so no balancer cache answers the repeats): REFUSED every
+    time.  It is the shape of the C answer cache (the serve mix is all
+    zone-table shapes), so the repeats are that cache's hits; returns
+    the errors."""
+    from binder_torch.dns import Message, Rcode
+    errors = []
+    for port in ports:
+        for k in range(3):
+            data = fresh_ask(port, f"nope.{DOMAIN}", 0x400 + k,
+                             required=False)
+            rcode = None if data is None else Message.decode(data).rcode
+            if rcode != Rcode.REFUSED:
+                errors.append(f"nope.{DOMAIN} on :{port}: rcode {rcode}")
+    return errors
+
+
+def query_lines(log_path: str, offset: int = 0) -> int:
+    """``DNS query`` lines of an instance log from byte ``offset``."""
+    n = 0
+    with open(log_path, "rb") as f:
+        f.seek(offset)
+        for line in f:
+            if line.startswith(b"{"):
+                try:
+                    n += json.loads(line).get("msg") == "DNS query"
+                except ValueError:
+                    continue
+    return n
+
+
+def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
+                   backends: int = TOPOLOGY_BACKENDS, native=None):
+    """The shipped topology with its production posture: ``backends``
+    ``python -m binder_torch.main -b`` servers, each with its own
+    ZooKeeper session and mirror, supervised by ``instance_adjust``
+    behind ``mbalancer`` with its answer cache on, the query log on,
+    under the serve mix and churn, with a backend SIGKILLed and
+    restored by ``topology start``.  Returns the stream's latencies
+    (microseconds).
+
+    ``mbalancer`` answers from its cache only for backends that relay
+    their replies through it; a backend on direct return answers the
+    client itself and the cache never sees its answers
+    (docs/balancer-protocol.md).  So the first half of the instances
+    start without direct return (``BINDER_NO_DIRECT_RETURN=1``, the
+    mixed-version posture), and ``topology start`` then scales to
+    ``backends`` with it: the cache is in the path of half the clients
+    and the freshness probes, direct return in that of the others."""
+    import asyncio
+    import threading
+    rng = random.Random(SEED + 5)
+    relay = backends // 2
+    victim = backends - 1            # a direct-return instance
+    procs = []
+    pids = set()                     # every instance and balancer pid
+    report = {"zone_names": hosts, "backends": backends,
+              "relay_backends": relay}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_topology_") as tmp:
+        rundir = os.path.join(tmp, "run")
+        state = os.path.join(rundir, "state")
+        sockdir = os.path.join(rundir, "sockets")
+        zk_log = os.path.join(tmp, "zk.log")
+        started = False
+        try:
+            zk = spawn(["-m", "binder_torch.store.zk_testserver", "0"],
+                       zk_log)
+            procs.append(zk)
+            zk_port = int(wait_line(zk, zk_log,
+                                    rb"listening on [\d.]+:(\d+)",
+                                    "topology: ZooKeeper server",
+                                    60).group(1))
+            nodes = zone_nodes(hosts)
+            t0 = time.monotonic()
+            asyncio.run(zk_create_all(zk_port, nodes))
+            report["zk_znodes"] = len(nodes)
+            report["seed_s"] = time.monotonic() - t0
+            config = topology_config(tmp, zk_port)
+            base = free_base(backends)
+            report["base_port"] = base
+            start = ["start", "-c", config, "-D", rundir, "-p", "0",
+                     "--bind", "127.0.0.1", "-B", str(base)]
+
+            def instance_pid(k: int) -> int:
+                return read_int(os.path.join(state,
+                                             f"binder-{base + k}.pid"))
+
+            def mport(k: int) -> int:
+                return base + 1000 + k
+
+            t0 = time.monotonic()
+            started = True
+            for n, env in ((relay, dict(os.environ,
+                                        BINDER_NO_DIRECT_RETURN="1")),
+                           (backends, None)):
+                rc, out = topology(*start, "-n", str(n), env=env)
+                log(f"topology start -n {n}: rc {rc}; "
+                    + out.strip().replace("\n", "; "))
+                if rc != 0:
+                    raise PhaseError(f"topology: start -n {n} exited {rc}")
+            report["start_s"] = time.monotonic() - t0
+            port = read_int(os.path.join(rundir, "balancer.port"))
+            pids.add(read_int(os.path.join(rundir, "balancer.pid")))
+            inst = {k: instance_pid(k) for k in range(backends)}
+            pids.update(inst.values())
+            wait_balancer(sockdir, backends, backends - relay,
+                          t0 + TOPOLOGY_BOOT_DEADLINE_S)
+            # boot: every backend's own walk reaches the last host, every
+            # host answers through the balancer, and a sample answers on
+            # every backend's own port
+            boot_deadline = t0 + TOPOLOGY_BOOT_DEADLINE_S
+            for k in range(backends):
+                wait_host(base + k, hosts - 1, hosts, boot_deadline)
+            zone_sweep(port, hosts, boot_deadline, what="topology",
+                       sources=BALANCER_CLIENTS)
+            sample = rng.sample(range(hosts), min(TOPOLOGY_SAMPLE, hosts))
+            for k in range(backends):
+                zone_sweep(base + k, hosts, boot_deadline, indices=sample,
+                           what=f"topology backend {k}")
+            report["boot_s"] = time.monotonic() - t0
+            log(f"topology: {backends} backends served every host after "
+                f"{report['boot_s']}s")
+
+            errors = []
+            with open(os.path.join(rundir, "metric_ports")) as f:
+                report["metric_ports"] = [int(p) for p in f.read().split()]
+            if report["metric_ports"] != [mport(k) for k in range(backends)]:
+                errors.append(f"metric_ports {report['metric_ports']}")
+            rc, out = topology("status", "-D", rundir)
+            report["status_online"] = out.count("online")
+            if rc != 0 or out.count("online") != backends + 1:
+                errors.append(f"status: {out.strip()!r}")
+            for k, pid in inst.items():
+                line = cmdline(pid)
+                if "-m binder_torch.main" not in line or \
+                        "binder_tpu" in line:
+                    raise PhaseError(f"topology: instance {k} runs "
+                                     f"{line!r}")
+
+            churn = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--churn",
+                 str(zk_port), str(port), "--spread"], cwd=ROOT,
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+            procs.append(churn)
+            if churn.stdout.readline().strip() != b"churn: ready":
+                raise PhaseError("topology: churn process did not start")
+
+            killed, restored = {}, {}
+            victim_log = os.path.join(state, f"binder-{base + victim}.log")
+
+            def reconverge():
+                restored["rc"], restored["out"] = topology(
+                    *start, "-n", str(backends))
+                restored["s"] = time.monotonic() - killed["at"]
+
+            thread = threading.Thread(target=reconverge)
+
+            def on_progress(done):
+                if killed or done < n_udp * KILL_AT:
+                    return
+                pid = inst[victim]
+                cpu = cpu_seconds(pid)
+                os.kill(pid, signal.SIGKILL)
+                killed.update(pid=pid, cpu=cpu, at=time.monotonic())
+                while pid_running(pid):
+                    time.sleep(0.001)
+                # what the killed process wrote ends here; its
+                # successor appends to the same file
+                killed["log_offset"] = os.path.getsize(victim_log)
+                thread.start()
+
+            queries = query_mix(rng, n_udp, hosts)
+            c_lane0 = {k: native_reading(mport(k)) for k in range(backends)}
+            cpu0 = {k: cpu_seconds(pid) for k, pid in inst.items()}
+            client_cpu0 = time.process_time()
+            t0 = time.monotonic()
+            lat, stream_errors, retries = udp_flows(
+                port, queries, FLOWS, CONCURRENCY, on_progress,
+                sources=BALANCER_CLIENTS)
+            udp_s = time.monotonic() - t0
+            errors += stream_errors
+            report.update(udp_queries=n_udp, udp_answered=len(lat),
+                          udp_retries=retries, udp_qps=len(lat) / udp_s,
+                          client_cpu_busy=(time.process_time()
+                                           - client_cpu0) / udp_s)
+            if not killed:
+                raise PhaseError("topology: no backend was killed")
+            errors += absent_checks([base + k for k in range(backends)
+                                     if k != victim])
+            per = {k: {"instance": base + k, "pid": [inst[k]],
+                       "direct": k >= relay} for k in range(backends)}
+            now = time.monotonic()
+            for k in range(backends):
+                if k == victim:
+                    per[k]["busy"] = ((killed["cpu"] - cpu0[k])
+                                      / (killed["at"] - t0))
+                    continue
+                per[k]["busy"] = (cpu_seconds(inst[k]) - cpu0[k]) / (now - t0)
+                after = native_reading(mport(k))
+                errors += native_gate(f"topology backend {k}", c_lane0[k],
+                                      after)
+                per[k].update(native_delta(c_lane0[k], after))
+
+            churn.stdin.close()
+            out = churn.stdout.read().decode().strip().splitlines()
+            if churn.wait(timeout=60) != 0 or not out:
+                raise PhaseError("topology: churn process failed")
+            churned = json.loads(out[-1])
+            fresh = np.asarray(churned["fresh_ms"], np.float64)
+            report["churn"] = {
+                "writes": churned["writes"],
+                "writes_per_s": churned["writes"] / churned["seconds"],
+                "fresh_samples": int(fresh.size),
+                "fresh_p50_ms": float(np.percentile(fresh, 50))
+                if fresh.size else None,
+                "fresh_p99_ms": float(np.percentile(fresh, 99))
+                if fresh.size else None,
+                "stale_samples": len(churned["stale_ms"]),
+                "all_read_back": churned["final_ok"],
+                "read_back_s": churned["final_s"]}
+            if churned["stale_ms"] or not churned["final_ok"] or \
+                    not fresh.size:
+                errors.append("churn: an acknowledged write was not read "
+                              f"back within {FRESH_LIMIT_S:.0f}s")
+
+            # the re-converge: a new pid running the port, whose own
+            # walk serves the zone, serving a write made after the crash
+            thread.join(TOPOLOGY_CALL_S)
+            if thread.is_alive() or restored.get("rc") != 0:
+                raise PhaseError(f"topology: re-converge failed: "
+                                 f"{restored.get('out', '')[-2000:]}")
+            new_pid = instance_pid(victim)
+            pids.add(new_pid)
+            line = cmdline(new_pid)
+            if new_pid == killed["pid"] or \
+                    "-m binder_torch.main" not in line or \
+                    "binder_tpu" in line:
+                raise PhaseError(f"topology: restored instance {new_pid} "
+                                 f"runs {line!r}")
+            per[victim]["pid"].append(new_pid)
+            wait_host(base + victim, hosts - 1, hosts,
+                      time.monotonic() + TOPOLOGY_BOOT_DEADLINE_S)
+            zone_sweep(base + victim, hosts,
+                       time.monotonic() + TOPOLOGY_BOOT_DEADLINE_S,
+                       indices=sample, what="topology restored backend")
+            report["restore"] = {"start_s": restored["s"],
+                                 "serving_s": time.monotonic()
+                                 - killed["at"]}
+            wait_balancer(sockdir, backends, backends - relay,
+                          time.monotonic() + BALANCER_DEADLINE_S)
+            errors += tcp_checks(port, query_mix(rng, N_TCP, hosts))
+
+            stats0 = balancer_stats(sockdir)
+            before = native_reading(mport(victim))
+            asyncio.run(zk_set(zk_port, "/com/foo/churn/c00",
+                               host_json(POSTKILL_ADDR)))
+            deadline = time.monotonic() + FRESH_LIMIT_S
+            while True:
+                got = [a_addrs(data) if data else None for data in
+                       replies_from(port, churn_name(0), FRESH_CLIENTS)]
+                if all(a == [POSTKILL_ADDR] for a in got):
+                    break
+                if time.monotonic() > deadline:
+                    errors.append(f"post-kill write not served on every "
+                                  f"fresh address: {got}")
+                    break
+                time.sleep(0.05)
+            _, fresh_errors, _ = udp_flows(
+                port, query_mix(rng, TOPOLOGY_FRESH_UDP, hosts), FLOWS,
+                CONCURRENCY, sources=FRESH_CLIENTS)
+            errors += fresh_errors + absent_checks([base + victim])
+            after = native_reading(mport(victim))
+            errors += native_gate("topology restored backend", before,
+                                  after)
+            per[victim].update(native_delta(before, after))
+            stats = balancer_stats(sockdir)
+            moved = {k: forwarded_by(stats, base)[k]
+                     - forwarded_by(stats0, base)[k]
+                     for k in range(backends)}
+            report["forwarded_after_restore"] = moved
+            if min(moved.values()) <= 0:
+                errors.append(f"a backend got no fresh address: {moved}")
+            report["mbalancer"] = {k: stats.get(k) for k in (
+                "udp_queries", "tcp_queries", "cache_hits", "cache_misses",
+                "cache_invalidations", "fd_passes", "direct_forwards")}
+            report["forwarded"] = forwarded_by(stats, base)
+            if sorted(report["forwarded"]) != list(range(backends)) or \
+                    min(report["forwarded"].values()) <= 0:
+                errors.append(f"a backend served nothing: "
+                              f"{report['forwarded']}")
+            if stats["cache_invalidations"] <= 0:
+                errors.append("the balancer's cache dropped no entry")
+            if stats["direct_forwards"] <= 0:
+                errors.append("no query went to a direct-return backend")
+
+            # every query a backend completed is one line of its log:
+            # read the counters with the streams done and the rings
+            # drained, stop, then count (the logs are block-buffered)
+            time.sleep(0.5)
+            completed = {k: metric_sum(http_json(mport(k), "/metrics"),
+                                       "binder_requests_completed")
+                         for k in range(backends)}
+            rc, out = topology("stop", "-D", rundir)
+            report["stop_rc"] = rc
+            if rc == 0:
+                started = False        # nothing left for the cleanup
+            else:
+                errors.append(f"stop exited {rc}: {out.strip()!r}")
+            deadline = time.monotonic() + DRAIN_DEADLINE_S
+            while any(pid_running(p) for p in pids):
+                if time.monotonic() > deadline:
+                    errors.append(f"running after stop: "
+                                  f"{[p for p in pids if pid_running(p)]}")
+                    break
+                time.sleep(0.05)
+            rc, out = topology("status", "-D", rundir)
+            if "online" in out or "balancer: down" not in out:
+                errors.append(f"status after stop: {out.strip()!r}")
+            for k in range(backends):
+                lines = query_lines(
+                    os.path.join(state, f"binder-{base + k}.log"),
+                    killed["log_offset"] if k == victim else 0)
+                per[k].update(log_lines=lines, completed=completed[k])
+                if lines != completed[k]:
+                    errors.append(f"backend {k}: {lines} query log "
+                                  f"line(s) for {completed[k]} "
+                                  "completed queries")
+            report["per_backend"] = [per[k] for k in range(backends)]
+            if native is not None:
+                native["topology"] = [
+                    {f: per[k].get(f) for f in NATIVE_COUNTERS}
+                    for k in range(backends)]
+            report["errors"] = len(errors)
+        except PhaseError:
+            logs = [zk_log, os.path.join(rundir, "balancer.log")]
+            if os.path.isdir(state):
+                logs += sorted(os.path.join(state, f)
+                               for f in os.listdir(state)
+                               if f.endswith(".log"))
+            for path in logs:
+                if os.path.exists(path):
+                    tail = read_bytes(path)[-3000:].decode(errors="replace")
+                    log(f"--- {os.path.basename(path)} (last 3000 bytes) "
+                        f"---\n{tail}")
+            raise
+        finally:
+            if started:
+                topology("stop", "-D", rundir)
+            if os.path.isdir(state):
+                for f in os.listdir(state):
+                    if f.endswith(".pid"):
+                        pids.add(read_int(os.path.join(state, f)))
+            for pid in pids:
+                if pid_running(pid):
+                    os.kill(pid, signal.SIGKILL)
+            for proc in reversed(procs):
+                reap(proc)
+        left = descendants(os.getpid()) + [p for p in pids
+                                           if pid_running(p)]
+        report["left_after_stop"] = left
+    pct = np.percentile(np.asarray(lat, np.float64), [50, 99]) \
+        if lat else [float("nan")] * 2
+    report.update(udp_p50_us=float(pct[0]), udp_p99_us=float(pct[1]))
+    log(json.dumps({"topology": report}))
+    check_phase("topology", errors, left)
+    return lat
+
+
+# -- phase 7: chaos ---------------------------------------------------
 
 CHAOS_SHARDS = 4
 #: every supervisor-side action of the chaos DSL (binder_torch/chaos/
@@ -1945,11 +2489,7 @@ def chaos_group_leg(hosts: int = HOSTS, shards: int = CHAOS_SHARDS):
         left = descendants(os.getpid())
         report["left_after_drain"] = left
     log(json.dumps({"chaos_group": report}))
-    if errors or left:
-        for e in errors[:20]:
-            log("chaos error: " + e)
-        raise PhaseError(f"chaos: {len(errors)} error(s), "
-                         f"{len(left)} process(es) left")
+    check_phase("chaos", errors, left)
     return report
 
 
@@ -2052,6 +2592,10 @@ async def chaos_upstream_run(duration: float):
             rd = i % 5 == 0
             name = f"w.remote.{domain}" if rd else f"w{i % 8}.{domain}"
             stats["queries"] += 1
+            # the state the query is asked in: an answer the server
+            # rendered just before a transition may arrive after it, and
+            # is held to the state it was asked in
+            mode = pol.mode()
             try:
                 msg = await ask(name, (i % 0xFFFF) + 1, rd)
             except asyncio.TimeoutError:
@@ -2059,7 +2603,6 @@ async def chaos_upstream_run(duration: float):
                     violations.append(f"local query for {name} hung")
                 stats["rd_timeouts"] += 1
                 continue
-            mode = pol.mode()
             if msg.rcode == Rcode.NOERROR and msg.answers:
                 ds = store.disconnected_seconds()
                 if mode == "stale-exhausted" and not rd:
@@ -2133,7 +2676,7 @@ def chaos_phase(hosts: int = HOSTS, shards: int = CHAOS_SHARDS,
                          f"C lane {stats['c_lane']}")
 
 
-# -- phase 7: aggregate -----------------------------------------------
+# -- phase 8: aggregate -----------------------------------------------
 
 
 def reference_percentile(ordered: np.ndarray, q: float) -> np.float32:
@@ -2209,7 +2752,7 @@ def aggregate_phase(torch, latencies, sharded) -> None:
     hold_aggregate(torch, aggregate, big, "lognormal 2**24+1")
 
 
-# -- phase 8: collective ----------------------------------------------
+# -- phase 9: collective ----------------------------------------------
 
 
 def collective_phase() -> None:
@@ -2231,7 +2774,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--churn"]:
-        return churn_main(int(sys.argv[2]), int(sys.argv[3]))
+        return churn_main(int(sys.argv[2]), int(sys.argv[3]),
+                          CHURN_CLIENTS if sys.argv[4:5] == ["--spread"]
+                          else None)
     native = {}
     try:
         torch = device_phase()
@@ -2239,6 +2784,7 @@ def main() -> int:
         latencies = serve_phase(native=native)
         sharded = deploy_phase(native=native)
         balancer_phase(native=native)
+        topology_phase(native=native)
         chaos_phase(native=native)
         aggregate_phase(torch, latencies, sharded)
         collective_phase()

@@ -353,14 +353,19 @@ def test_cache_key_follows_every_source(tmp_path, monkeypatch):
                     native / "balancer")
     shutil.copytree(os.path.join(ROOT, "native", "common"),
                     native / "common")
+    shutil.copytree(os.path.join(ROOT, "native", "adjust"),
+                    native / "adjust")
     monkeypatch.setattr(fastio_build, "NATIVE_DIR", str(native))
     art = fastio_build.ARTIFACTS
     keys = {n: fastio_build.cache_key(a) for n, a in art.items()}
     assert keys == {n: fastio_build.cache_key(a) for n, a in art.items()}
-    assert keys["extension"] != keys["mbalancer"]
+    assert set(keys) == {"extension", "mbalancer", "instance_adjust"}
+    assert len(set(keys.values())) == len(keys)
     for rel, changes in (("fastio/fastpath.c", {"extension"}),
                          ("fastio/fpcore.h", {"extension"}),
                          ("balancer/mbalancer.cpp", {"mbalancer"}),
+                         ("adjust/instance_adjust.cpp",
+                          {"instance_adjust"}),
                          ("common/dnskey.h", {"extension", "mbalancer"})):
         with open(native / rel, "a") as f:
             f.write("\n/* changed */\n")
@@ -469,7 +474,8 @@ def test_chip_smoke_native_phase_on_the_cpu():
     import chip_smoke
     report = chip_smoke.native_phase(hosts=2000)
     assert report["functions"] == len(EXTENSION_FUNCTIONS)
-    assert set(report["build_s"]) == {"extension", "mbalancer"}
+    assert set(report["build_s"]) == {"extension", "mbalancer",
+                                      "instance_adjust"}
     parity = report["parity"]
     assert parity["differ"] == 0 and parity["identical"] > 0
     assert parity["replies"] == parity["identical"] + \
