@@ -23,6 +23,7 @@ Used by tests/test_torch_chaos.py and the chaos phase of
 from __future__ import annotations
 
 import asyncio
+import errno
 import logging
 import socket
 import struct
@@ -185,16 +186,31 @@ class ChaosUpstream:
 
     # -- lifecycle --
 
+    #: how often ``start(port=0)`` picks a UDP port anew when the TCP
+    #: port of the same number is taken
+    BIND_ATTEMPTS = 16
+
     async def start(self, address: str = "127.0.0.1",
                     port: int = 0) -> int:
         loop = asyncio.get_running_loop()
-        self._udp_transport, _ = await loop.create_datagram_endpoint(
-            lambda: self._Proto(self), local_addr=(address, port))
-        self.port = self._udp_transport.get_extra_info("sockname")[1]
-        # TCP shares the UDP port number (binder peers serve both)
-        self._tcp_server = await asyncio.start_server(
-            self._tcp_conn, address, self.port)
-        return self.port
+        attempts = self.BIND_ATTEMPTS if port == 0 else 1
+        for attempt in range(attempts):
+            self._udp_transport, _ = await loop.create_datagram_endpoint(
+                lambda: self._Proto(self), local_addr=(address, port))
+            self.port = self._udp_transport.get_extra_info("sockname")[1]
+            # TCP shares the UDP port number (binder peers serve both);
+            # the kernel picked the UDP port alone, and its TCP twin may
+            # be in use on a busy host: then pick again
+            try:
+                self._tcp_server = await asyncio.start_server(
+                    self._tcp_conn, address, self.port)
+                return self.port
+            except OSError as e:
+                self._udp_transport.close()
+                self._udp_transport = None
+                if e.errno != errno.EADDRINUSE or attempt == attempts - 1:
+                    raise
+        raise AssertionError("unreachable")
 
     async def stop(self) -> None:
         if self._udp_transport is not None:

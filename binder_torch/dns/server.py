@@ -1008,7 +1008,10 @@ class DnsServer:
         # (served or declined) per packet sampled.  Counted in packets, not readiness events,
         # so a burst that lands in one event is sampled like the same
         # burst spread over many.  The first sample is the Nth packet,
-        # as it was the Nth event when the count was in events.
+        # as it was the Nth event when the count was in events.  A
+        # sample reads 64 // N packets, so no run the C drain serves
+        # unjudged reaches one batch: a spoofed burst that fits inside
+        # such a run is served whole without decide() seeing it.
         rrl_credit = [self.rrl.FASTPATH_SAMPLE_EVERY - 1
                       if self.rrl is not None else 0]
         # Late (async-completed) responses — the recursion path — are
@@ -1060,6 +1063,8 @@ class DnsServer:
                     want = 64
                     sample = (use_fp and rrl is not None
                               and rrl_credit[0] <= 0)
+                    if sample:
+                        want = max(1, 64 // rrl.FASTPATH_SAMPLE_EVERY)
                     try:
                         if use_fp and not sample:
                             if rrl is not None:
@@ -1099,6 +1104,11 @@ class DnsServer:
                                           "packet from %s", addr)
                     if len(msgs) + served < want:
                         break
+                    if sample and rrl.hot():
+                        # the sample tripped the limiter: judge the
+                        # rest of this event, as the shut gate will
+                        # judge the next ones
+                        use_fp = False
             finally:
                 if rrl is not None:
                     rrl.sample_cost = 1.0

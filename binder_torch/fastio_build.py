@@ -3,13 +3,21 @@
 The counterpart of ``native/Makefile``'s rules for the fast-path
 extension (``native/fastio/{fastio,fastpath}.c`` into
 ``_binderfastio<EXT_SUFFIX>``), the ``mbalancer`` binary
-(``native/balancer/mbalancer.cpp``) and the ``instance_adjust``
-reconciler (``native/adjust/instance_adjust.cpp``), with the same
+(``native/balancer/mbalancer.cpp``), the ``instance_adjust``
+reconciler (``native/adjust/instance_adjust.cpp``), the ``zlogcat``
+txnlog decoder (``native/zklog/zlogcat.cpp``) and the ``dnsblast``
+load generator (``native/loadgen/dnsblast.cpp``), with the same
 compilers and flags.  The artifacts go into ``binder_torch/_build/``
 (git-ignored), one directory per artifact and cache key; the key
 hashes the bytes of every source and header, the command line and the
 interpreter's ABI suffix, so a changed source rebuilds and an
 unchanged one is found.
+
+``python -m binder_torch.fastio_build install`` is the port's ``make
+-C native``: it builds all five artifacts and points the stable names
+``binder_torch/_build/bin/<artifact file>`` at them, so that the
+systemd units (``binder_torch/deploy/systemd/``) can name a fixed
+path.  A failed build exits 1 with the compiler's error.
 
 Many processes may reach the first use at once (a shard supervisor
 and its workers, test workers): the build runs under an ``fcntl``
@@ -27,13 +35,15 @@ on every start).
 """
 from __future__ import annotations
 
+import argparse
 import fcntl
 import hashlib
 import os
 import subprocess
+import sys
 import sysconfig
 import time
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 NATIVE_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "native")
@@ -75,6 +85,10 @@ ARTIFACTS = {
     "instance_adjust": Artifact(
         "instance_adjust", ("adjust/instance_adjust.cpp",), (),
         cpp=True, python=False),
+    "zlogcat": Artifact(
+        "zlogcat", ("zklog/zlogcat.cpp",), (), cpp=True, python=False),
+    "dnsblast": Artifact(
+        "dnsblast", ("loadgen/dnsblast.cpp",), (), cpp=True, python=False),
 }
 
 
@@ -145,3 +159,46 @@ def build(name: str) -> Tuple[str, Optional[float]]:
                 f"{proc.returncode}:\n{proc.stderr.strip()}")
         os.replace(tmp, out)
     return out, seconds
+
+
+def bin_path(name: str) -> str:
+    """The stable name ``install`` points at ``name``'s artifact."""
+    return os.path.join(BUILD_DIR, "bin", ARTIFACTS[name].output)
+
+
+def install() -> Dict[str, Tuple[str, Optional[float]]]:
+    """Build every artifact and point ``_build/bin/<file>`` at it (a
+    relative symlink, replaced atomically); returns each artifact's
+    path and compile seconds as :func:`build` does."""
+    built = {}
+    for name in ARTIFACTS:
+        path, seconds = build(name)
+        link = bin_path(name)
+        os.makedirs(os.path.dirname(link), exist_ok=True)
+        tmp = f"{link}.tmp{os.getpid()}"
+        os.symlink(os.path.relpath(path, os.path.dirname(link)), tmp)
+        os.replace(tmp, link)
+        built[name] = (path, seconds)
+    return built
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m binder_torch.fastio_build",
+        description="build the port's native artifacts from native/")
+    ap.add_argument("command", choices=["install"],
+                    help="build all artifacts and link _build/bin/")
+    ap.parse_args(argv)
+    try:
+        built = install()
+    except NativeBuildError as e:
+        print(f"fastio_build: {e}", file=sys.stderr)
+        return 1
+    for name, (path, seconds) in built.items():
+        how = "cached" if seconds is None else f"built in {seconds!r} s"
+        print(f"{bin_path(name)} -> {path} ({how})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -39,11 +39,14 @@ Mechanics, mirroring `AdmissionControl`'s house style:
 - Detection under the fastpath: a cache-hit flood answered entirely
   in C would never reach `decide()` to trip ``hot()`` in the first
   place.  The batched UDP reader therefore **samples by packet
-  count** while the gate is open: one ``recv_batch`` drains through
-  Python with ``sample_cost`` set to ``FASTPATH_SAMPLE_EVERY``, and
-  each packet so judged lets the C drain serve
-  ``FASTPATH_SAMPLE_EVERY - 1`` more, so each sampled packet charges
-  its prefix what the unsampled stream would have.  Counting packets
+  count** while the gate is open: one ``recv_batch`` of
+  ``64 // FASTPATH_SAMPLE_EVERY`` packets drains through Python with
+  ``sample_cost`` set to ``FASTPATH_SAMPLE_EVERY``, and each packet so
+  judged lets the C drain serve ``FASTPATH_SAMPLE_EVERY - 1`` more, so
+  each sampled packet charges its prefix what the unsampled stream
+  would have, and no run the C drain serves unjudged reaches one
+  batch.  A sample that trips the limiter judges the rest of its
+  readiness event.  Counting packets
   rather than readiness events means a burst that lands in a single
   event is sampled like the same burst spread over many.  A flooded
   prefix overdraws within a bucket-burst of sampled traffic →

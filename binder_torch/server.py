@@ -908,6 +908,12 @@ class BinderServer:
             # more pending: yield to I/O first (call_soon callbacks
             # added during a loop pass run on the NEXT pass)
             self._schedule_zone_drain()
+        else:
+            # a set keeps the table it grew to, and pop() walks that
+            # table from where the last pop stopped: after a zone fill
+            # (two entries per name) every later mutation's pop would
+            # scan the whole fill's slots, so start from a small set
+            self._zone_dirty = set()
 
     # -- zone precompilation (fpcore.h zone table) --
 

@@ -236,6 +236,11 @@ class Verifier:
             if (n >= self.MIN_CHUNK
                     and time.perf_counter() - t0 >= self.BUDGET_S):
                 break
+        if not q:
+            # a dict keeps the entries it grew to, and next(iter())
+            # skips every deleted one from the front: start small
+            # again, or each later check scans the whole boot queue
+            self._queue = {}
         if reschedule and (q or not self._sweep_done):
             self._drain_scheduled = False
             try:

@@ -53,7 +53,24 @@ it started and exits non-zero without printing the ``ok`` line:
    every write read back through the cache, every backend serving on
    its C lane and logging one line per query it completed; ``topology
    stop`` leaves nothing.
-7. chaos: (a) a 4-worker group over the fake store at the serve
+7. systemd: the port installed as on a systemd host
+   (``binder_torch/deploy/README.md``), its units run by the
+   ``systemctl`` stand-in ``binder_torch.deploy.systemctl_shim``:
+   ``python -m binder_torch.fastio_build install`` builds all five
+   artifacts (``zlogcat`` and ``dnsblast`` too); ``binder-config.
+   service`` renders ``etc/config.json`` from Triton metadata (the
+   loopback overrides printed); ``binder-balancer.service`` and the
+   port-built ``instance_adjust -m systemd -i 4 -w`` bring up 4
+   ``binder@.service`` instances over the deploy phase's zone in the
+   port's ZooKeeper server.  Every host through the balancer, ``bdig``
+   on a few names, 60,000 queries from the port-built ``dnsblast`` (16
+   source addresses, window 64) and as many UDP plus 500 TCP from the
+   Python client with every reply checked; a ``zkput`` fixture read
+   back within 5 s; a scale 4 -> 2 -> 4 under a stream, a SIGKILL
+   restored by a converge, the metric ports, a teardown that leaves
+   nothing.  Each converge must issue the ``systemctl`` verbs the
+   reference's ``tests/test_instance_adjust_systemd.py`` expects.
+8. chaos: (a) a 4-worker group over the fake store at the serve
    phase's zone with a ``chaos`` block scripting every supervisor-side
    fault, under the 16-socket stream: every query answered or refused,
    nothing stale past the cap, every action injected, the respawned
@@ -62,18 +79,19 @@ it started and exits non-zero without printing the ``ok`` line:
    under loss, then a dead peer, then recovery, with the store's
    session lost and restored: stale within the cap, SERVFAIL past it,
    and re-convergence.
-8. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
+9. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
    over the serve and deploy latencies and over a seeded 2**24 + 1
    batch, held against numpy.
-9. collective: the data-parallel mean over NCCL on the one card.
+10. collective: the data-parallel mean over NCCL on the one card.
 
 The port has no hand-written GPU kernel (the JAX package has no Pallas
 kernel to port; the native code is host code), so the kernel line is
 an empty list.  Before it, a ``{"native": ...}`` line carries the build
 seconds, the lane parity and the C lane's hits in each phase.  The last
 line is ``{"ok": true, "device": {...}}``.  ``--churn ZK_PORT
-DNS_PORT`` is the deploy phase's churn process, started by the script
-itself.
+DNS_PORT [--spread]`` is the deploy and topology phases'
+churn process, started by the script itself; ``--churn-cost N[,N...]``
+measures one server's CPU per churn write at zones of ``N`` hosts.
 """
 from __future__ import annotations
 
@@ -777,6 +795,8 @@ FLOWS = 16
 CHURN_NAMES = 64
 CHURN_INTERVAL_S = 0.002
 FRESH_LIMIT_S = 5.0
+#: the churn's length in ``--churn-cost``
+CHURN_COST_S = 6.0
 RETRY_AFTER_S = 1.0
 KILL_AT = 0.5
 DEPLOY_BOOT_DEADLINE_S = 300.0
@@ -1235,6 +1255,72 @@ def churn_main(zk_port: int, dns_port: int, sources=None) -> int:
           flush=True)
     return 0
 
+
+
+def churn_cost_main(sizes) -> int:
+    """``--churn-cost N[,N...]``: for each zone of ``N`` hosts, one
+    ``python -m binder_torch.main`` over the port's ZooKeeper server
+    with the topology phase's config; once its walk serves the last host
+    and it has gone idle, the churn's 500 writes/s for
+    ``CHURN_COST_S``.  Prints, per size, the server's busy share and its
+    CPU milliseconds per write beyond its idle rate."""
+    import asyncio
+
+    async def churn(zk_port: int) -> int:
+        client = await zk_connect(zk_port)
+        n = int(CHURN_COST_S / CHURN_INTERVAL_S)
+        t_next = time.monotonic()
+        for w in range(n):
+            await client.set_data(f"/com/foo/churn/c{w % CHURN_NAMES:02d}",
+                                  host_json(churn_addr(w)))
+            t_next += CHURN_INTERVAL_S
+            await asyncio.sleep(max(0.0, t_next - time.monotonic()))
+        client.close()
+        return n
+
+    for hosts in sizes:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cost_") as tmp:
+            procs = []
+            try:
+                zk_log = os.path.join(tmp, "zk.log")
+                procs.append(spawn(["-m", "binder_torch.store.zk_testserver",
+                                    "0"], zk_log))
+                zk_port = int(wait_line(procs[0], zk_log,
+                                        rb"listening on [\d.]+:(\d+)",
+                                        "churn cost: ZooKeeper server",
+                                        60).group(1))
+                asyncio.run(zk_create_all(zk_port, zone_nodes(hosts)))
+                port = free_base(1)
+                procs.append(spawn(["-m", "binder_torch.main", "-f",
+                                    topology_config(tmp, zk_port),
+                                    "-p", str(port)],
+                                   os.path.join(tmp, "server.log")))
+                pid = procs[1].pid
+                t0 = time.monotonic()
+                wait_host(port, hosts - 1, hosts,
+                          t0 + TOPOLOGY_BOOT_DEADLINE_S)
+                while True:     # the walk's zone pushes drain after it
+                    c0, t1 = cpu_seconds(pid), time.monotonic()
+                    time.sleep(1.0)
+                    idle = (cpu_seconds(pid) - c0) / (time.monotonic() - t1)
+                    if idle < 0.05 or t1 - t0 > TOPOLOGY_BOOT_DEADLINE_S:
+                        break
+                settle_s = time.monotonic() - t0
+                c0, t1 = cpu_seconds(pid), time.monotonic()
+                writes = asyncio.run(churn(zk_port))
+                dt = time.monotonic() - t1
+                used = cpu_seconds(pid) - c0
+                print(json.dumps({"churn_cost": {
+                    "zone_names": hosts, "writes": writes,
+                    "writes_per_s": writes / dt, "settle_s": settle_s,
+                    "idle_busy": idle, "busy": used / dt,
+                    "ms_per_write": (used - idle * dt) / writes * 1e3}}),
+                      flush=True)
+            finally:
+                for proc in procs:
+                    reap(proc)
+                    proc.wait(30)
+    return 0
 
 def cross_dc(port: int, dc1_port: int):
     """A dc1 name asked of dc0's group must come back as dc1 itself
@@ -2012,6 +2098,7 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
                 cpu = cpu_seconds(pid)
                 os.kill(pid, signal.SIGKILL)
                 killed.update(pid=pid, cpu=cpu, at=time.monotonic())
+                report["kill_after_s"] = killed["at"] - t0
                 while pid_running(pid):
                     time.sleep(0.001)
                 # what the killed process wrote ends here; its
@@ -2132,7 +2219,8 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
                 errors.append(f"a backend got no fresh address: {moved}")
             report["mbalancer"] = {k: stats.get(k) for k in (
                 "udp_queries", "tcp_queries", "cache_hits", "cache_misses",
-                "cache_invalidations", "fd_passes", "direct_forwards")}
+                "cache_invalidations", "fd_passes", "direct_forwards",
+                "drops", "wq_overflows")}
             report["forwarded"] = forwarded_by(stats, base)
             if sorted(report["forwarded"]) != list(range(backends)) or \
                     min(report["forwarded"].values()) <= 0:
@@ -2216,7 +2304,602 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
     return lat
 
 
-# -- phase 7: chaos ---------------------------------------------------
+# -- phase 7: systemd -------------------------------------------------
+
+SYSTEMD_INSTANCES = 4
+SYSTEMD_BLAST = 60_000
+#: dnsblast's client addresses (127.20.0.1-16) and queries in flight
+SYSTEMD_BLAST_SOURCES = 16
+SYSTEMD_BLAST_WINDOW = 64
+SYSTEMD_BLAST_TEMPLATES = 4096
+#: the Python client's queries, every reply checked: as many as
+#: dnsblast sends, so the two clients' qps come from like windows
+SYSTEMD_UDP = SYSTEMD_BLAST
+SYSTEMD_CALL_S = 300.0
+#: the Python client's addresses on the installed stack, and those of
+#: each later check, so every check meets the balancer's client
+#: affinity afresh
+SYSTEMD_CLIENTS = [f"127.0.4.{k + 1}" for k in range(FLOWS)]
+SCALE_CLIENTS = [f"127.0.5.{k + 1}" for k in range(FLOWS)]
+RESTORE_CLIENTS = [f"127.0.6.{k + 1}" for k in range(FLOWS)]
+ZKPUT_PATH = "/com/foo/zkput"
+ZKPUT_ADDR = "10.204.0.1"
+UNITS_DIR = os.path.join("binder_torch", "deploy", "systemd")
+
+
+def systemd_install(tmp: str):
+    """The install sketch of ``binder_torch/deploy/README.md`` under
+    ``tmp``: an install root (``/opt/binder``) linking the checkout's
+    ``binder_torch``, ``native`` and ``deploy`` with its own ``etc/``,
+    the units copied where systemd would read them, a run directory
+    (``/run/binder``) and the ``systemctl`` stand-in's state; returns
+    their paths."""
+    import shutil
+    paths = {k: os.path.join(tmp, k)
+             for k in ("opt", "units", "run", "shim")}
+    os.makedirs(os.path.join(paths["opt"], "etc"))
+    for name in ("binder_torch", "native", "deploy"):
+        os.symlink(os.path.join(ROOT, name),
+                   os.path.join(paths["opt"], name))
+    shutil.copytree(os.path.join(ROOT, UNITS_DIR), paths["units"])
+    return paths
+
+
+def shim_log(paths, since: int = 0):
+    """The ``systemctl`` invocations the stand-in logged, from line
+    ``since``."""
+    try:
+        with open(os.path.join(paths["shim"], "log")) as f:
+            return f.read().splitlines()[since:]
+    except FileNotFoundError:
+        return []
+
+
+def shim_pid(paths, unit: str):
+    """The pid the stand-in recorded for ``unit``'s process."""
+    with open(os.path.join(paths["shim"], "units", unit + ".json")) as f:
+        return json.load(f).get("pid")
+
+
+def shim_pids(paths):
+    """Every unit process and watcher the stand-in started."""
+    out = []
+    try:
+        with open(os.path.join(paths["shim"], "pids")) as f:
+            for line in f:
+                out += [int(p) for p in line.split()[1:]]
+    except FileNotFoundError:
+        pass
+    return out
+
+
+def verb_errors(what: str, lines, expect, forbid=()):
+    """Errors unless every line of ``expect`` was issued (a tuple: in
+    that order) and no line starts with one of ``forbid``."""
+    errors = []
+    for want in expect:
+        seq = (want,) if isinstance(want, str) else want
+        at = -1
+        for line in seq:
+            try:
+                at = lines.index(line, at + 1)
+            except ValueError:
+                errors.append(f"{what}: no `systemctl {line}` in order "
+                              f"{list(seq)}")
+                break
+    for line in lines:
+        if line.startswith(tuple(forbid)):
+            errors.append(f"{what}: unexpected `systemctl {line}`")
+    return errors
+
+
+def systemd_phase(hosts: int = HOSTS, n_blast: int = SYSTEMD_BLAST,
+                  n_udp: int = SYSTEMD_UDP,
+                  instances: int = SYSTEMD_INSTANCES, native=None):
+    """The port installed as on a systemd host: ``binder_torch/deploy/
+    systemd/`` run by the ``systemctl`` stand-in, ``instance_adjust -m
+    systemd`` converging ``binder@.service`` instances behind
+    ``binder-balancer.service`` over the port's ZooKeeper server;
+    ``dnsblast`` (built by the port) and the Python client through the
+    balancer, ``bdig`` and ``zkput`` through the port's CLIs, a scale
+    down and up, a SIGKILL restored by a converge, and a teardown that
+    leaves nothing."""
+    import threading
+    from binder_torch import fastio_build
+    from binder_torch.config.render import render_manifest
+    from binder_torch.deploy import systemctl_shim
+    rng = random.Random(SEED + 6)
+    report = {"zone_names": hosts, "instances": instances}
+    errors = []
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_systemd_") as tmp:
+        paths = systemd_install(tmp)
+        sockdir = os.path.join(paths["run"], "sockets")
+        zk_log = os.path.join(tmp, "zk.log")
+        metadata = os.path.join(paths["opt"], "etc", "metadata.json")
+        config_path = os.path.join(paths["opt"], "etc", "config.json")
+        # the stand-in's watchers outlive the ``systemctl`` that started
+        # them: they are reaped here, not left to pid 1
+        child_subreaper(True)
+        try:
+            # 1. the port's ``make -C native``
+            t0 = time.monotonic()
+            built = subprocess.run(
+                [sys.executable, "-m", "binder_torch.fastio_build",
+                 "install"], cwd=paths["opt"], capture_output=True,
+                text=True, timeout=SYSTEMD_CALL_S)
+            report["install_s"] = time.monotonic() - t0
+            if built.returncode != 0:
+                raise PhaseError(f"systemd: fastio_build install exited "
+                                 f"{built.returncode}: {built.stderr}")
+            report["build_s"] = {}
+            for line in built.stdout.splitlines():
+                m = re.match(r"\S+/bin/(\S+) -> .*\(built in (\S+) s\)",
+                             line)
+                if m:
+                    report["build_s"][m.group(1)] = float(m.group(2))
+            log("systemd: fastio_build install: "
+                + built.stdout.strip().replace("\n", "; "))
+            binaries = {name: fastio_build.bin_path(name)
+                        for name in fastio_build.ARTIFACTS}
+            for name, link in binaries.items():
+                if os.path.realpath(link) != os.path.realpath(
+                        fastio_build.artifact_path(name)):
+                    raise PhaseError(f"systemd: {link} is not {name}")
+            adjust = binaries["instance_adjust"]
+
+            # the store: the deploy phase's zone in the port's server
+            zk = spawn(["-m", "binder_torch.store.zk_testserver", "0"],
+                       zk_log)
+            procs.append(zk)
+            zk_port = int(wait_line(zk, zk_log,
+                                    rb"listening on [\d.]+:(\d+)",
+                                    "systemd: ZooKeeper server",
+                                    60).group(1))
+            nodes = zone_nodes(hosts)
+            t0 = time.monotonic()
+            asyncio.run(zk_create_all(zk_port, nodes))
+            report["zk_znodes"] = len(nodes)
+            report["seed_s"] = time.monotonic() - t0
+
+            # the stand-in on PATH, its rewrites printed
+            dns_port = free_base(1)
+            bindir = systemctl_shim.setup(paths["shim"], paths["units"],
+                                          paths["opt"], paths["run"],
+                                          dns_port)
+            env = dict(os.environ, PATH=bindir + os.pathsep
+                       + os.environ.get("PATH", ""))
+
+            def systemctl(*args):
+                proc = subprocess.run(["systemctl", *args], env=env,
+                                      capture_output=True, text=True,
+                                      timeout=SYSTEMD_CALL_S)
+                return proc.returncode, proc.stdout.strip()
+
+            def converge(count: int, what: str):
+                """``instance_adjust -m systemd -i count -w``; returns
+                the stand-in's log lines of this converge and what
+                instance_adjust printed."""
+                since = len(shim_log(paths))
+                t0 = time.monotonic()
+                proc = subprocess.run(
+                    [adjust, "-m", "systemd", "-D", paths["units"],
+                     "-d", sockdir, "-B", str(base), "-i", str(count),
+                     "-w", "-r",
+                     "systemctl restart binder-metric-ports.service"],
+                    env=env, capture_output=True, text=True,
+                    timeout=SYSTEMD_CALL_S)
+                seconds = time.monotonic() - t0
+                out = proc.stdout.strip().replace("\n", "; ")
+                log(f"systemd: {what}: instance_adjust -i {count} exited "
+                    f"{proc.returncode} in {seconds}s: {out}")
+                if proc.returncode != 0:
+                    raise PhaseError(f"systemd: {what}: instance_adjust "
+                                     f"exited {proc.returncode}: "
+                                     f"{proc.stderr.strip()}")
+                report.setdefault("converge_s", {})[what] = seconds
+                return shim_log(paths, since), proc.stdout.splitlines()
+
+            # 2. the config, rendered by binder-config.service
+            with open(metadata, "w") as f:
+                json.dump(TRITON_METADATA, f)
+            rc, out = systemctl("start", "binder-config.service")
+            if rc != 0:
+                raise PhaseError(f"systemd: binder-config.service: rc {rc}")
+            with open(config_path) as f:
+                rendered = json.load(f)
+            want = json.loads(render_manifest(
+                os.path.join(ROOT, MANIFEST), TRITON_METADATA,
+                output_path=None))
+            if rendered != want:
+                errors.append("binder-config.service rendered another "
+                              "config than the template gives")
+            write_overridden(rendered, {
+                "store.port": zk_port,
+                "rrl": {"allowlist": ["127.0.0.0/8"]}}, config_path,
+                "systemd")
+            # a hand-edited config: binder-config.service's condition
+            # skips the render every instance start pulls in
+            os.replace(metadata, metadata + ".rendered")
+            log("systemd: etc/metadata.json set aside: the instances' "
+                "Wants=binder-config.service now skips on its condition")
+
+            # 3. the balancer, then the instances
+            base = free_base(instances)
+            report["base_port"] = base
+            report["dns_port"] = dns_port
+            rc, out = systemctl("start", "binder-balancer.service")
+            if rc != 0:
+                raise PhaseError(f"systemd: binder-balancer.service: "
+                                 f"rc {rc}")
+            bal_pid = shim_pid(paths, "binder-balancer.service")
+            deadline = time.monotonic() + BALANCER_DEADLINE_S
+            while not os.path.exists(os.path.join(sockdir,
+                                                  ".balancer.stats")):
+                if time.monotonic() > deadline:
+                    raise PhaseError("systemd: the balancer has no stats "
+                                     "socket")
+                time.sleep(0.05)
+            units = [f"binder@{base + k}.service" for k in range(instances)]
+
+            def mport(k: int) -> int:
+                return base + 1000 + k
+
+            t0 = time.monotonic()
+            lines, out = converge(instances, "create")
+            errors += verb_errors("create", lines, [
+                ("daemon-reload", f"start {units[0]}")]
+                + [(f"enable {u}", f"start {u}") for u in units]
+                + ["restart binder-metric-ports.service"])
+            if lines.count("daemon-reload") != 1:
+                errors.append(f"create: {lines.count('daemon-reload')} "
+                              "daemon-reload(s)")
+            boot_deadline = t0 + TOPOLOGY_BOOT_DEADLINE_S
+            wait_balancer(sockdir, instances, instances, boot_deadline)
+            for k in range(instances):
+                wait_host(base + k, hosts - 1, hosts, boot_deadline)
+            # 4. every host through the balancer, a sample on each
+            # instance's own port
+            zone_sweep(dns_port, hosts, boot_deadline, what="systemd",
+                       sources=BALANCER_CLIENTS)
+            sample = rng.sample(range(hosts), min(TOPOLOGY_SAMPLE, hosts))
+            for k in range(instances):
+                zone_sweep(base + k, hosts, boot_deadline, indices=sample,
+                           what=f"systemd instance {k}")
+            report["boot_s"] = time.monotonic() - t0
+            log(f"systemd: {instances} instances served every host after "
+                f"{report['boot_s']}s")
+            inst = {k: shim_pid(paths, units[k]) for k in range(instances)}
+            for k, pid in inst.items():
+                line = cmdline(pid)
+                if "-m binder_torch.main" not in line or \
+                        "binder_tpu" in line:
+                    raise PhaseError(f"systemd: instance {k} runs "
+                                     f"{line!r}")
+            errors += bdig_checks(dns_port, hosts)
+
+            # 5. dnsblast through the balancer
+            c_lane0 = {k: native_reading(mport(k))
+                       for k in range(instances)}
+            report["dnsblast"] = dnsblast_run(
+                binaries["dnsblast"], dns_port, n_blast, hosts, rng, tmp,
+                {"mbalancer": bal_pid,
+                 **{f"instance {k}": inst[k] for k in range(instances)}})
+            if report["dnsblast"]["errors"]:
+                errors.append(f"dnsblast: {report['dnsblast']}")
+            for k in range(instances):
+                after = native_reading(mport(k))
+                errors += native_gate(f"systemd instance {k}", c_lane0[k],
+                                      after)
+
+            # 6. the Python client on the same stack, every reply checked
+            cpu0 = {k: cpu_seconds(pid) for k, pid in inst.items()}
+            bal_cpu0 = cpu_seconds(bal_pid)
+            client_cpu0 = time.process_time()
+            t0 = time.monotonic()
+            lat, stream_errors, retries = udp_flows(
+                dns_port, query_mix(rng, n_udp, hosts), FLOWS, CONCURRENCY,
+                sources=SYSTEMD_CLIENTS)
+            udp_s = time.monotonic() - t0
+            errors += stream_errors
+            pct = np.percentile(np.asarray(lat, np.float64), [50, 99]) \
+                if lat else [float("nan")] * 2
+            report["python_client"] = {
+                "queries": n_udp, "answered": len(lat), "retries": retries,
+                "qps": len(lat) / udp_s, "p50_us": float(pct[0]),
+                "p99_us": float(pct[1]),
+                "busy": {"client": (time.process_time() - client_cpu0)
+                         / udp_s,
+                         "mbalancer": (cpu_seconds(bal_pid) - bal_cpu0)
+                         / udp_s,
+                         **{f"instance {k}": (cpu_seconds(inst[k])
+                                              - cpu0[k]) / udp_s
+                            for k in range(instances)}}}
+            errors += tcp_checks(dns_port, query_mix(rng, N_TCP, hosts))
+
+            # 7. a fixture through the port's zkput, read back through
+            # the balancer from every client address
+            fixture = os.path.join(tmp, "zkput.json")
+            with open(fixture, "w") as f:
+                json.dump({ZKPUT_PATH: {"type": "host",
+                                        "host": {"address": ZKPUT_ADDR}}},
+                          f)
+            put = subprocess.run(
+                [sys.executable, "-m", "binder_torch.cli.zkput", "-z",
+                 f"127.0.0.1:{zk_port}", fixture], cwd=ROOT,
+                capture_output=True, text=True, timeout=60)
+            t0 = time.monotonic()
+            if put.returncode != 0 or f"put {ZKPUT_PATH}" not in put.stdout:
+                errors.append(f"zkput exited {put.returncode}: "
+                              f"{put.stdout} {put.stderr}")
+            name = f"zkput.{DOMAIN}"
+            while True:
+                got = [a_addrs(data) if data else None for data in
+                       replies_from(dns_port, name, FRESH_CLIENTS)]
+                if all(a == [ZKPUT_ADDR] for a in got):
+                    report["zkput_read_back_s"] = time.monotonic() - t0
+                    break
+                if time.monotonic() - t0 > FRESH_LIMIT_S:
+                    errors.append(f"zkput write not read back on every "
+                                  f"address: {got}")
+                    break
+                time.sleep(0.05)
+
+            # 8. scale 4 -> 2 under a stream, then back to 4
+            keep = instances // 2
+            gone = units[keep:]
+            stats0 = balancer_stats(sockdir)
+            done = {}
+
+            def scale_down():
+                try:
+                    done["lines"], _ = converge(keep, "scale down")
+                finally:
+                    done["at"] = time.monotonic()
+
+            thread = threading.Thread(target=scale_down)
+            thread.start()
+            _, down_errors, down_retries = udp_flows(
+                dns_port, query_mix(rng, 1 << 16, hosts), FLOWS,
+                CONCURRENCY, sources=SCALE_CLIENTS,
+                stop=lambda: "at" in done
+                and time.monotonic() - done["at"] > 1.0)
+            thread.join(SYSTEMD_CALL_S)
+            errors += down_errors
+            if "lines" not in done:
+                raise PhaseError("systemd: the scale down failed")
+            errors += verb_errors(
+                "scale down", done["lines"],
+                [(f"disable --now {u}", f"reset-failed {u}") for u in gone]
+                + ["daemon-reload", "restart binder-metric-ports.service"],
+                forbid=("start binder@", "restart binder@"))
+            stats = balancer_stats(sockdir)
+            moved = {k: forwarded_by(stats, base).get(k, 0)
+                     - forwarded_by(stats0, base).get(k, 0)
+                     for k in range(keep)}
+            report["scale_down"] = {"forwarded_on_survivors": moved,
+                                    "retries": down_retries}
+            if min(moved.values()) <= 0:
+                errors.append(f"scale down: a survivor forwarded nothing: "
+                              f"{moved}")
+            listed = systemctl("list-units", "--all", "--plain",
+                               "--no-legend", "binder@*.service")[1]
+            for k, u in enumerate(units[keep:], keep):
+                if u in listed or os.path.exists(os.path.join(
+                        paths["units"], u + ".d")) or \
+                        pid_running(inst[k]):
+                    errors.append(f"scale down: {u} left behind")
+
+            t0 = time.monotonic()
+            lines, _ = converge(instances, "scale up")
+            errors += verb_errors(
+                "scale up", lines, [("daemon-reload", f"start {gone[0]}")]
+                + [(f"enable {u}", f"start {u}") for u in gone]
+                + ["restart binder-metric-ports.service"],
+                forbid=[f"{v} {u}" for u in units[:keep]
+                        for v in ("start", "restart", "stop")])
+            deadline = t0 + TOPOLOGY_BOOT_DEADLINE_S
+            for k in range(keep, instances):
+                inst[k] = shim_pid(paths, units[k])
+                wait_host(base + k, hosts - 1, hosts, deadline)
+                zone_sweep(base + k, hosts, deadline, indices=sample,
+                           what=f"systemd re-added instance {k}")
+            wait_balancer(sockdir, instances, instances, deadline)
+            report["scale_up_serving_s"] = time.monotonic() - t0
+
+            # 9. SIGKILL one instance, restore it by a converge
+            victim = 1
+            old = inst[victim]
+            os.kill(old, signal.SIGKILL)
+            t0 = time.monotonic()
+            while systemctl("show", "-p", "ActiveState", "--value",
+                            units[victim])[1] != "failed":
+                if time.monotonic() - t0 > 30:
+                    raise PhaseError(f"systemd: {units[victim]} not "
+                                     "failed after SIGKILL")
+                time.sleep(0.05)
+            lines, out = converge(instances, "restore")
+            errors += verb_errors(
+                "restore", lines, [(f"reset-failed {units[victim]}",
+                                    f"start {units[victim]}")])
+            if f"restore binder-{base + victim}" not in out:
+                errors.append(f"restore: instance_adjust printed {out}")
+            new = inst[victim] = shim_pid(paths, units[victim])
+            line = cmdline(new) if new else ""
+            if new == old or "-m binder_torch.main" not in line or \
+                    "binder_tpu" in line:
+                raise PhaseError(f"systemd: restored instance {new} runs "
+                                 f"{line!r}")
+            deadline = time.monotonic() + TOPOLOGY_BOOT_DEADLINE_S
+            wait_host(base + victim, hosts - 1, hosts, deadline)
+            zone_sweep(base + victim, hosts, deadline, indices=sample,
+                       what="systemd restored instance")
+            wait_balancer(sockdir, instances, instances, deadline)
+            report["restore"] = {"pid": [old, new],
+                                 "serving_s": time.monotonic() - t0}
+            stats0 = balancer_stats(sockdir)
+            _, fresh_errors, _ = udp_flows(
+                dns_port, query_mix(rng, n_udp, hosts), FLOWS,
+                CONCURRENCY, sources=RESTORE_CLIENTS)
+            errors += fresh_errors
+            stats = balancer_stats(sockdir)
+            moved = {k: forwarded_by(stats, base)[k]
+                     - forwarded_by(stats0, base)[k]
+                     for k in range(instances)}
+            report["forwarded_after_restore"] = moved
+            if min(moved.values()) <= 0:
+                errors.append(f"an instance got no fresh address: {moved}")
+
+            # 10. the metric ports of the live instances
+            with open(os.path.join(paths["run"], "metric_ports")) as f:
+                report["metric_ports"] = [int(p) for p in f.read().split()]
+            if report["metric_ports"] != [mport(k)
+                                          for k in range(instances)]:
+                errors.append(f"metric_ports {report['metric_ports']}")
+            # a name the zone lacks, thrice on each instance's own port:
+            # REFUSED, the C answer cache's shape (the serve mix is all
+            # zone-table shapes)
+            errors += absent_checks([base + k for k in range(instances)])
+            report["c_lane"] = {k: native_reading(mport(k))
+                                for k in range(instances)}
+            for k, reading in report["c_lane"].items():
+                if not reading["binder_fastpath_entries"] > 0:
+                    errors.append(f"instance {k}: no C lane: {reading}")
+            report["rewrites"] = open(os.path.join(
+                paths["shim"], "rewrites")).read().splitlines()
+
+            # 11. the teardown
+            lines, _ = converge(0, "teardown")
+            errors += verb_errors("teardown", lines,
+                                  [f"disable --now {u}" for u in units])
+            rc, _ = systemctl("stop", "binder-balancer.service")
+            if rc != 0:
+                errors.append(f"stop binder-balancer.service: rc {rc}")
+            report["errors"] = len(errors)
+        except PhaseError:
+            logs = [zk_log]
+            logdir = os.path.join(paths["shim"], "logs")
+            if os.path.isdir(logdir):
+                logs += sorted(os.path.join(logdir, f)
+                               for f in os.listdir(logdir))
+            for path in logs:
+                if os.path.exists(path):
+                    tail = read_bytes(path)[-3000:].decode(errors="replace")
+                    log(f"--- {os.path.basename(path)} (last 3000 bytes) "
+                        f"---\n{tail}")
+            raise
+        finally:
+            # after the teardown every watcher exits once it has
+            # recorded its unit's end; after a failure nothing stops them
+            deadline = time.monotonic() + (5.0 if "errors" in report
+                                           else 0.0)
+            while any(pid_running(p) for p in shim_pids(paths)) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.05)
+            for p in shim_pids(paths):
+                if pid_running(p):
+                    os.kill(p, signal.SIGKILL)
+            reap_orphans(shim_pids(paths))
+            child_subreaper(False)
+            for proc in reversed(procs):
+                reap(proc)
+        left = descendants(os.getpid()) + [p for p in shim_pids(paths)
+                                           if pid_running(p)]
+        report["left_after_stop"] = left
+    log(json.dumps({"systemd": report}))
+    if native is not None:
+        native["systemd"] = report.get("c_lane")
+    check_phase("systemd", errors, left)
+    return report
+
+
+def child_subreaper(on: bool) -> bool:
+    """Make this process (or stop it being) the reaper of orphaned
+    processes below it (Linux ``PR_SET_CHILD_SUBREAPER``)."""
+    import ctypes
+    try:
+        return ctypes.CDLL(None, use_errno=True).prctl(
+            36, int(on), 0, 0, 0) == 0
+    except (OSError, AttributeError):
+        return False
+
+
+def reap_orphans(pids) -> None:
+    """Collect the exit status of those of ``pids`` that ended as this
+    process's children (orphans reparented to it)."""
+    deadline = time.monotonic() + 5.0
+    for pid in pids:
+        while True:
+            try:
+                done, _ = os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                break                  # not ours, or already collected
+            if done or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+
+
+def bdig_checks(port: int, hosts: int):
+    """``python -m binder_torch.cli.bdig`` on a few names through the
+    balancer: host A, its PTR, the service SRV over TCP and ``+short``;
+    returns the errors."""
+    from binder_torch.dns import reverse_name_for_ip
+    racks = max(1, min(1024, hosts // 512))
+    i = hosts // 2
+    errors = []
+    for args, want in (
+            ([host_name(i, racks), "A"], host_addr(i)),
+            ([reverse_name_for_ip(host_addr(i)), "PTR"],
+             host_name(i, racks) + "."),
+            ([f"_http._tcp.svc.{DOMAIN}", "SRV", "+tcp"], "8080"),
+            ([f"svc.{DOMAIN}", "+short"], "10.0.1.1")):
+        proc = subprocess.run(
+            [sys.executable, "-m", "binder_torch.cli.bdig", "@127.0.0.1",
+             "-p", str(port), *args], cwd=ROOT, capture_output=True,
+            text=True, timeout=60)
+        if proc.returncode != 0 or want not in proc.stdout or \
+                ("+tcp" in args and "(TCP)" not in proc.stdout):
+            errors.append(f"bdig {' '.join(args)}: rc {proc.returncode}, "
+                          f"{proc.stdout!r}")
+    return errors
+
+
+def dnsblast_run(binary: str, port: int, n: int, hosts: int, rng, tmp: str,
+                 pids):
+    """``dnsblast`` with ``n`` UDP queries of the serve mix through
+    ``port`` from ``SYSTEMD_BLAST_SOURCES`` addresses; its JSON line
+    plus each process's busy share over the run."""
+    import resource
+    from binder_torch.dns import make_query
+    path = os.path.join(tmp, "templates.bin")
+    with open(path, "wb") as f:
+        for name, qtype, _ in query_mix(rng, SYSTEMD_BLAST_TEMPLATES, hosts):
+            wire = make_query(name, qtype, qid=0).encode()
+            f.write(struct.pack(">H", len(wire)) + wire)
+    cpu0 = {k: cpu_seconds(p) for k, p in pids.items()}
+    child0 = resource.getrusage(resource.RUSAGE_CHILDREN)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [binary, "-H", "127.0.0.1", "-p", str(port), "-n", str(n),
+         "-w", str(SYSTEMD_BLAST_WINDOW), "-S", str(SYSTEMD_BLAST_SOURCES),
+         "-t", path], capture_output=True, text=True,
+        timeout=UDP_DEADLINE_S + 30)
+    wall = time.monotonic() - t0
+    child = resource.getrusage(resource.RUSAGE_CHILDREN)
+    if proc.returncode != 0:
+        raise PhaseError(f"systemd: dnsblast exited {proc.returncode}: "
+                         f"{proc.stderr.strip()}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["queries"] = n          # it exits 0 only once all are answered
+    busy = {k: (cpu_seconds(p) - cpu0[k]) / wall for k, p in pids.items()}
+    busy["dnsblast"] = (child.ru_utime + child.ru_stime - child0.ru_utime
+                        - child0.ru_stime) / wall
+    out["busy"] = busy
+    log(f"systemd: dnsblast: {json.dumps(out)}")
+    return out
+
+
+# -- phase 8: chaos ---------------------------------------------------
 
 CHAOS_SHARDS = 4
 #: every supervisor-side action of the chaos DSL (binder_torch/chaos/
@@ -2582,7 +3265,13 @@ async def chaos_upstream_run(duration: float):
     pol = server._policy
     stats = {"queries": 0, "ok": 0, "stale": 0, "refused": 0,
              "servfail": 0, "rd_timeouts": 0,
+             "asked_across_a_transition": 0, "transitions": 0,
              "c_lane": server._fastpath is not None}
+
+    def count_transition(old, new):
+        stats["transitions"] += 1
+
+    pol.on_transition(count_transition)
     violations = []
     t_end = loop.time() + duration
     i = 0
@@ -2592,9 +3281,10 @@ async def chaos_upstream_run(duration: float):
             rd = i % 5 == 0
             name = f"w.remote.{domain}" if rd else f"w{i % 8}.{domain}"
             stats["queries"] += 1
-            # the state the query is asked in: an answer the server
-            # rendered just before a transition may arrive after it, and
-            # is held to the state it was asked in
+            # the state at the ask and at the answer: an answer may be
+            # rendered on either side of a transition between the two
+            # (the restore landing while the ask is in flight), and is
+            # held to the rule of one of the two states
             mode = pol.mode()
             try:
                 msg = await ask(name, (i % 0xFFFF) + 1, rd)
@@ -2603,16 +3293,22 @@ async def chaos_upstream_run(duration: float):
                     violations.append(f"local query for {name} hung")
                 stats["rd_timeouts"] += 1
                 continue
+            modes = {mode, pol.mode()}
+            if len(modes) > 1:
+                stats["asked_across_a_transition"] += 1
             if msg.rcode == Rcode.NOERROR and msg.answers:
                 ds = store.disconnected_seconds()
-                if mode == "stale-exhausted" and not rd:
-                    violations.append("data served while stale-exhausted")
+                clamped = all(a.ttl <= clamp for a in msg.answers)
+                if not rd and "fresh" not in modes:
+                    if "stale-serving" not in modes:
+                        violations.append("data served while "
+                                          "stale-exhausted")
+                    elif not clamped:
+                        violations.append("stale answer TTL not clamped")
                 if ds is not None and not rd \
                         and ds > max_staleness + CHAOS_SLACK_S:
                     violations.append(f"answer {ds:.2f}s stale")
-                if mode == "stale-serving" and not rd:
-                    if any(a.ttl > clamp for a in msg.answers):
-                        violations.append("stale answer TTL not clamped")
+                if modes == {"stale-serving"} and not rd:
                     stats["stale"] += 1
                 stats["ok"] += 1
             elif msg.rcode == Rcode.REFUSED:
@@ -2623,6 +3319,11 @@ async def chaos_upstream_run(duration: float):
                 violations.append(f"unexpected rcode {msg.rcode}")
             await asyncio.sleep(duration / 600.0)
         await asyncio.wait_for(chaos_task, duration)
+        # one query at a time: each crossing spans its own transition
+        if stats["asked_across_a_transition"] > stats["transitions"]:
+            violations.append(f"{stats['asked_across_a_transition']} "
+                              f"answers crossed {stats['transitions']} "
+                              "transitions")
         if not stats["stale"]:
             violations.append("stale-serving window never observed")
         if not stats["servfail"]:
@@ -2676,7 +3377,7 @@ def chaos_phase(hosts: int = HOSTS, shards: int = CHAOS_SHARDS,
                          f"C lane {stats['c_lane']}")
 
 
-# -- phase 8: aggregate -----------------------------------------------
+# -- phase 9: aggregate -----------------------------------------------
 
 
 def reference_percentile(ordered: np.ndarray, q: float) -> np.float32:
@@ -2752,7 +3453,7 @@ def aggregate_phase(torch, latencies, sharded) -> None:
     hold_aggregate(torch, aggregate, big, "lognormal 2**24+1")
 
 
-# -- phase 9: collective ----------------------------------------------
+# -- phase 10: collective ---------------------------------------------
 
 
 def collective_phase() -> None:
@@ -2773,6 +3474,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--churn-cost"]:
+        return churn_cost_main([int(n) for n in sys.argv[2].split(",")])
     if sys.argv[1:2] == ["--churn"]:
         return churn_main(int(sys.argv[2]), int(sys.argv[3]),
                           CHURN_CLIENTS if sys.argv[4:5] == ["--spread"]
@@ -2785,6 +3488,7 @@ def main() -> int:
         sharded = deploy_phase(native=native)
         balancer_phase(native=native)
         topology_phase(native=native)
+        systemd_phase(native=native)
         chaos_phase(native=native)
         aggregate_phase(torch, latencies, sharded)
         collective_phase()

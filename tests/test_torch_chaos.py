@@ -22,6 +22,7 @@
   re-converges.
 """
 import asyncio
+import errno
 import logging
 import socket
 import textwrap
@@ -289,6 +290,34 @@ def test_upstream_builds_the_same_bytes():
     assert built >= 20
 
 
+def test_upstream_picks_again_when_the_tcp_twin_is_taken(monkeypatch):
+    # the kernel picks the UDP port alone, and on a busy host the TCP
+    # port of that number may be in use: the port picks again, the
+    # reference fails to start
+    real = asyncio.start_server
+    calls = []
+
+    async def busy_once(*args, **kw):
+        calls.append(args[2])
+        if len(calls) == 1:
+            raise OSError(errno.EADDRINUSE, "address already in use")
+        return await real(*args, **kw)
+
+    async def start(upstream):
+        try:
+            return await upstream.start()
+        finally:
+            await upstream.stop()
+
+    monkeypatch.setattr(asyncio, "start_server", busy_once)
+    with pytest.raises(OSError):
+        asyncio.run(start(ref_upstream.ChaosUpstream(ref_plan.FaultPlan(),
+                                                     hosts=HOSTS)))
+    calls.clear()
+    port = asyncio.run(start(ChaosUpstream(FaultPlan(), hosts=HOSTS)))
+    assert len(calls) == 2 and calls[1] == port
+
+
 class Transport:
     def __init__(self):
         self.sent = []
@@ -420,7 +449,13 @@ async def soak():
 
     pol = server._policy
     stats = {"ok": 0, "refused": 0, "servfail": 0, "stale": 0,
+             "across_a_transition": 0, "transitions": 0,
              "native": server._fastpath is not None}
+
+    def count_transition(old, new):
+        stats["transitions"] += 1
+
+    pol.on_transition(count_transition)
     loop = asyncio.get_running_loop()
     t_end = loop.time() + SOAK_SECONDS
     i = 0
@@ -431,6 +466,9 @@ async def soak():
             if rd:
                 name = "w.remote.foo.com"
             i += 1
+            # the state at the ask and at the answer: an answer may be
+            # rendered on either side of a transition between the two
+            asked = pol.mode()
             try:
                 msg = await udp_ask(server.udp_port, name, Type.A,
                                     qid=(i % 0xFFFF) + 1, rd=rd,
@@ -440,13 +478,17 @@ async def soak():
                 # window under 40% loss; local queries may not
                 assert rd, f"local query for {name} hung"
                 continue
-            mode = pol.mode()
+            modes = {asked, pol.mode()}
+            if len(modes) > 1:
+                stats["across_a_transition"] += 1
             if msg.rcode == Rcode.NOERROR and msg.answers:
                 # data answers only while fresh or within the staleness
-                # cap, and stale answers are clamped
-                assert mode in ("fresh", "stale-serving")
-                if mode == "stale-serving" and not rd:
-                    assert all(a.ttl <= 3 for a in msg.answers)
+                # cap, and stale answers are clamped; one that crossed a
+                # transition meets the rule of one of the two states
+                clamped = rd or all(a.ttl <= 3 for a in msg.answers)
+                assert "fresh" in modes or (
+                    "stale-serving" in modes and clamped), (modes, msg)
+                if modes == {"stale-serving"} and not rd:
                     stats["stale"] += 1
                 ds = store.disconnected_seconds()
                 if ds is not None and not rd:
@@ -460,6 +502,8 @@ async def soak():
             await asyncio.sleep(0.01)
 
         await asyncio.wait_for(chaos_task, 5.0)
+        # one query at a time: each crossing spans its own transition
+        assert stats["across_a_transition"] <= stats["transitions"], stats
 
         # re-convergence: session back -> fresh, serving, and every
         # degradation signal at rest

@@ -353,19 +353,22 @@ def test_cache_key_follows_every_source(tmp_path, monkeypatch):
                     native / "balancer")
     shutil.copytree(os.path.join(ROOT, "native", "common"),
                     native / "common")
-    shutil.copytree(os.path.join(ROOT, "native", "adjust"),
-                    native / "adjust")
+    for sub in ("adjust", "zklog", "loadgen"):
+        shutil.copytree(os.path.join(ROOT, "native", sub), native / sub)
     monkeypatch.setattr(fastio_build, "NATIVE_DIR", str(native))
     art = fastio_build.ARTIFACTS
     keys = {n: fastio_build.cache_key(a) for n, a in art.items()}
     assert keys == {n: fastio_build.cache_key(a) for n, a in art.items()}
-    assert set(keys) == {"extension", "mbalancer", "instance_adjust"}
+    assert set(keys) == {"extension", "mbalancer", "instance_adjust",
+                         "zlogcat", "dnsblast"}
     assert len(set(keys.values())) == len(keys)
     for rel, changes in (("fastio/fastpath.c", {"extension"}),
                          ("fastio/fpcore.h", {"extension"}),
                          ("balancer/mbalancer.cpp", {"mbalancer"}),
                          ("adjust/instance_adjust.cpp",
                           {"instance_adjust"}),
+                         ("zklog/zlogcat.cpp", {"zlogcat"}),
+                         ("loadgen/dnsblast.cpp", {"dnsblast"}),
                          ("common/dnskey.h", {"extension", "mbalancer"})):
         with open(native / rel, "a") as f:
             f.write("\n/* changed */\n")
@@ -375,6 +378,53 @@ def test_cache_key_follows_every_source(tmp_path, monkeypatch):
     monkeypatch.setattr(fastio_build, "CFLAGS",
                         fastio_build.CFLAGS + ("-DX",))
     assert fastio_build.cache_key(art["extension"]) != keys["extension"]
+    monkeypatch.setattr(fastio_build, "CXXFLAGS",
+                        fastio_build.CXXFLAGS + ("-DX",))
+    now = {n: fastio_build.cache_key(a) for n, a in art.items()}
+    assert {n for n in now if now[n] != keys[n]} == set(keys)
+
+
+def test_install_links_every_artifact():
+    # the port's ``make -C native``: five artifacts, each under a
+    # stable relative name in _build/bin/
+    proc = subprocess.run(
+        [sys.executable, "-m", "binder_torch.fastio_build", "install"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert len(proc.stdout.splitlines()) == len(fastio_build.ARTIFACTS) == 5
+    for name, art in fastio_build.ARTIFACTS.items():
+        link = fastio_build.bin_path(name)
+        assert link == os.path.join(fastio_build.BUILD_DIR, "bin",
+                                    art.output)
+        assert not os.path.isabs(os.readlink(link))
+        assert os.path.realpath(link) == os.path.realpath(
+            fastio_build.artifact_path(name))
+        assert f"{link} -> {fastio_build.artifact_path(name)}" in proc.stdout
+        if not art.python:
+            assert os.access(link, os.X_OK)
+
+
+FAILED_INSTALL = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from binder_torch import fastio_build
+fastio_build.CXX = "no-such-cxx-for-the-port"
+fastio_build.BUILD_DIR = sys.argv[2]
+sys.exit(fastio_build.main(["install"]))
+"""
+
+
+def test_failed_install_exits_with_the_compiler_error(tmp_path):
+    build_dir = str(tmp_path / "build")
+    proc = subprocess.run(
+        [sys.executable, "-c", FAILED_INSTALL, ROOT, build_dir], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "no-such-cxx-for-the-port" in proc.stderr
+    assert "cannot build mbalancer" in proc.stderr
+    # built in order up to the failure; nothing links what was not built
+    linked = os.listdir(os.path.join(build_dir, "bin"))
+    assert linked == [fastio_build.ARTIFACTS["extension"].output]
 
 
 FIRST_USE = """

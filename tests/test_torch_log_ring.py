@@ -376,6 +376,10 @@ def query_lines(log_path, want):
         time.sleep(0.05)
 
 
+def line_key(line):
+    return line["port"].rsplit("/", 1)[1], line["req_id"]
+
+
 def comparable(line):
     """A line without its volatile fields, its port reduced to the
     transport, its trace ID to the sequence after the process's pid,
@@ -407,7 +411,12 @@ def test_query_log_lines_equal_the_reference(tmp_path):
             proc.wait(timeout=10)
     port_lines, ref_lines = lines["binder_torch"], lines["binder_tpu"]
     assert len(port_lines) == len(ref_lines) == 2 * len(wires)
-    for got, want in zip(port_lines, ref_lines):
+    # paired by transport and query ID: the C lane's lines reach the
+    # log when its ring drains (every 0.1 s), the Python lane's at
+    # once, so a loaded host interleaves the two lanes differently in
+    # each process's file
+    for got, want in zip(sorted(port_lines, key=line_key),
+                         sorted(ref_lines, key=line_key)):
         assert comparable(got) == comparable(want), (got, want)
     # the C lane logged some of them: its cached-hit shape is there
     assert any(x.get("cached") is True for x in port_lines)

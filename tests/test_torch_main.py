@@ -12,8 +12,9 @@ rotating service names (``svc.foo.com`` A and
 sorted record sets; every other reply is compared byte for byte.
 
 The port must never load the reference: a fresh interpreter that
-imports the port's entry points and its deploy-path modules (ZooKeeper,
-shard group, recursion, federation, config render) holds no
+imports the port's entry points, its deploy-path modules (ZooKeeper,
+shard group, recursion, federation, config render), its operator CLIs
+and its ``systemctl`` stand-in holds no
 ``binder_tpu``, ``jax`` or ``__graft_entry__`` module afterwards, no
 file of the port (nor ``chip_smoke.py``) imports one, only
 ``graft_entry`` imports torch (the deploy-path modules load without it),
@@ -176,9 +177,15 @@ def fresh_imports(modules):
         [sys.executable, "-c", probe], cwd=ROOT, env=env))
 
 
+#: the operator CLIs and the systemctl stand-in of the install path
+INSTALL_MODULES = ("binder_torch.cli.bdig", "binder_torch.cli.zkput",
+                   "binder_torch.cli.config_render",
+                   "binder_torch.deploy.systemctl_shim")
+
+
 def test_fresh_interpreter_imports_no_reference():
     added = fresh_imports(("binder_torch.main", "binder_torch.graft_entry")
-                          + DEPLOY_MODULES)
+                          + DEPLOY_MODULES + INSTALL_MODULES)
     # everything a bare interpreter holds (site, .pth files,
     # sitecustomize), which ``added`` cannot see
     bare = ("import sys, json; "
@@ -188,7 +195,7 @@ def test_fresh_interpreter_imports_no_reference():
         env=dict(os.environ, PYTHONPATH=ROOT)))
     assert baseline
     assert "binder_torch.graft_entry" in added and "torch" in added
-    for name in DEPLOY_MODULES:
+    for name in DEPLOY_MODULES + INSTALL_MODULES:
         assert name in added
     for name in added:
         assert name.split(".")[0] not in FORBIDDEN, name

@@ -32,18 +32,22 @@ def test_chip_smoke_chaos_phase_on_the_cpu():
         [sys.executable, "-c", CHAOS_SMALL.format(root=root)],
         cwd=root, capture_output=True, timeout=300)
     lines = out.stdout.decode().splitlines()
-    assert out.returncode == 0, (lines[-8:], out.stderr.decode()[-3000:])
+    # on failure, the whole of both legs' reports and the errors
+    said = "\n".join(lines) + "\n" + out.stderr.decode()[-3000:]
+    assert out.returncode == 0, said
     group = json.loads(next(x for x in lines
                             if x.startswith('{"chaos_group"')))
     report = group["chaos_group"]
-    assert report["errors"] == 0 and report["left_after_drain"] == []
-    assert len(report["injected"]) == 11
+    assert report["errors"] == 0 and report["left_after_drain"] == [], said
+    assert len(report["injected"]) == 11, said
     stale = report["stale"]
-    assert stale["data_past_cap"] == 0 and stale["stale_answers"] > 0
-    assert stale["refusals_past_cap"] > 0
-    assert report["digest_violations"] >= 1 and report["rrl_dropped"] > 0
-    assert report["respawns_total"] >= 1 and report["rolls_total"] >= 1
+    assert stale["data_past_cap"] == 0 and stale["stale_answers"] > 0, said
+    assert stale["refusals_past_cap"] > 0, said
+    assert report["digest_violations"] >= 1 and \
+        report["rrl_dropped"] > 0, said
+    assert report["respawns_total"] >= 1 and \
+        report["rolls_total"] >= 1, said
     upstream = json.loads(next(x for x in lines
                                if x.startswith('{"chaos_upstream"')))
-    assert upstream["chaos_upstream"]["violations"] == []
-    assert json.loads(lines[-1])["left"] == []
+    assert upstream["chaos_upstream"]["violations"] == [], said
+    assert json.loads(lines[-1])["left"] == [], said
