@@ -79,10 +79,38 @@ it started and exits non-zero without printing the ``ok`` line:
    under loss, then a dead peer, then recovery, with the store's
    session lost and restored: stale within the cap, SERVFAIL past it,
    and re-convergence.
-9. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
+9. hostile: ``tools/hostile_smoke.py`` on the port, at the serve
+   phase's zone with the reference smoke's RRL limit (150/s, burst
+   300, slip 2, 512 buckets): once the zone fill has settled, a paced
+   legit control from 127.0.0.1, then ``python -m
+   binder_torch.loadgen.hostile`` (64 flows, 6,000 qps, 10 s, the
+   default mix over the zone's host names) with the same probe under
+   it.  Gates: the spoof prefixes slipped and dropped and the RRL
+   counters moved, goodput under the flood at least half the
+   control's, malformed frames never answered, the server up, RSS
+   growth from after the control at most 64 MiB, the bucket cap, the
+   RRL exposition and ``/status`` valid, the C lane resident and
+   serving.
+10. population: ``tools/population_smoke.py`` on the port at the same
+   zone.  Leg A: ``binder_torch.loadgen.population.run_population``
+   (200,000 identities behind 4 NAT'd farms, 48 direct clients,
+   Zipf 1.1, 300 -> 2,000 qps, a 20% spoofed overlay, 10 s) against
+   RRL v2 (60/s, burst 120, adaptive, the direct cohort's /16
+   allowlisted): farm goodput at least 0.5, false positives at most
+   0.10, adaptations, drops and allowlisted counts, the C lane.  Leg
+   B: a 2-worker group whose chaos block floods and then rolls every
+   worker, rolled again by SIGHUP, under a closed-loop allowlisted
+   probe: no probe query lost, at most 3 retried, every pid replaced
+   twice by ``binder_torch.main`` workers, 2 rolls a shard and no
+   abort, clean quiesces, sequential rolls, the shard exposition, the
+   flood limited, nothing left after SIGTERM.  Two departures from the
+   reference smokes, both printed: the name population (the zone's
+   100,000 hosts, not 8 or 16), and leg B's flood of 1,600 packets, not
+   400 (``ROLL_PLAN`` says why).
+11. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
    over the serve and deploy latencies and over a seeded 2**24 + 1
    batch, held against numpy.
-10. collective: the data-parallel mean over NCCL on the one card.
+12. collective: the data-parallel mean over NCCL on the one card.
 
 The port has no hand-written GPU kernel (the JAX package has no Pallas
 kernel to port; the native code is host code), so the kernel line is
@@ -3377,7 +3405,516 @@ def chaos_phase(hosts: int = HOSTS, shards: int = CHAOS_SHARDS,
                          f"C lane {stats['c_lane']}")
 
 
-# -- phase 9: aggregate -----------------------------------------------
+# -- phase 9: hostile -------------------------------------------------
+
+#: ``tools/hostile_smoke.py``'s settings, at ``make ci``'s trim
+#: (``BINDER_HOSTILE_SECONDS=10``): the RRL limit, the paced legit
+#: probe under it, the flood's flows and pacing, and the floors
+HOSTILE_SECONDS = 10.0
+HOSTILE_LEGIT_QPS = 100
+HOSTILE_RRL = {"responsesPerSecond": 150, "burst": 300, "slipRatio": 2,
+               "maxBuckets": 512}
+HOSTILE_FLOOD_QPS = 6000
+HOSTILE_FLOWS = 64
+HOSTILE_MAX_RSS_GROWTH_KB = 64 * 1024
+HOSTILE_GOODPUT_FLOOR = 0.5
+#: the scale departure from the reference smokes, printed by both phases
+NAMES_DEPARTURE = ("names: the zone's {n} host names, where the "
+                   "reference smokes ask 8 (hostile) or 16 (population)")
+SETTLE_DEADLINE_S = 300.0
+SETTLE_EVERY_S = 1.0
+
+
+def rss_kb(pid: int):
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    return None
+
+
+def series_value(text: str, family: str, label: str) -> float:
+    """The sum of the series of ``family`` whose labels hold ``label``
+    (for example ``reason="response-ratelimit"``)."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.split("{", 1)[0] == family and label in line:
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def settle_zone(mport: int, what: str) -> dict:
+    """Wait until the zone fill has settled (``binder_zone_entries`` the
+    same two readings in a row), so that a control measured now and a
+    stream measured later read one server state."""
+    t0 = time.monotonic()
+    last = None
+    while True:
+        entries = metric_sum(http_json(mport, "/metrics"),
+                             "binder_zone_entries")
+        if entries > 0 and entries == last:
+            return {"zone_entries": entries,
+                    "settle_s": time.monotonic() - t0}
+        if time.monotonic() - t0 > SETTLE_DEADLINE_S:
+            raise PhaseError(f"{what}: the zone fill did not settle in "
+                             f"{SETTLE_DEADLINE_S:.0f}s ({entries} "
+                             "entries)")
+        last = entries
+        time.sleep(SETTLE_EVERY_S)
+
+
+def zone_names(hosts: int, seed: int):
+    """Every host name of the zone, in a seeded order."""
+    racks = max(1, min(1024, hosts // 512))
+    names = [host_name(i, racks) for i in range(hosts)]
+    random.Random(seed).shuffle(names)
+    return names
+
+
+def rrl_readings(text: str) -> dict:
+    return {name: metric_sum(text, f"binder_rrl_{name}")
+            for name in ("responses_total", "slipped_total",
+                         "dropped_total", "buckets", "allowlisted_total",
+                         "adaptations_total", "adapted_buckets",
+                         "false_positives_total")}
+
+
+def hostile_phase(hosts: int = HOSTS, duration: float = HOSTILE_SECONDS,
+                  native=None):
+    """Port of ``tools/hostile_smoke.py`` at the serve phase's zone: a
+    paced legit control, then the adversarial flood in its own process
+    with the same probe under it; returns the report."""
+    from binder_torch.loadgen.hostile import legit_probe
+    from tools.lint import validate_rrl_metrics, validate_status_snapshot
+    t_phase = time.monotonic()
+    names = zone_names(hosts, SEED + 5)
+    report = {"zone_names": hosts, "duration_s": duration,
+              "departure": NAMES_DEPARTURE.format(n=hosts)}
+    errors = []
+    proc = flood = None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hostile_") as tmp:
+        log_path = os.path.join(tmp, "server.log")
+        try:
+            t0 = time.monotonic()
+            proc, port = boot_server(
+                write_config(tmp, hosts, rrl=HOSTILE_RRL), log_path,
+                "hostile: server")
+            report["boot_s"] = time.monotonic() - t0
+            mport = metrics_port(log_path)
+            report.update(settle_zone(mport, "hostile"))
+            names_path = os.path.join(tmp, "names.txt")
+            with open(names_path, "w") as f:
+                f.write("\n".join(names) + "\n")
+            before = native_reading(mport)
+
+            # 1. the no-flood control, paced under the per-prefix limit
+            control = legit_probe("127.0.0.1", port,
+                                  duration=max(2.0, duration * 0.1),
+                                  names=names, domain=DOMAIN,
+                                  qps=HOSTILE_LEGIT_QPS)
+            report["control"] = control
+            if not control["answered"]:
+                raise PhaseError(f"hostile: the control got no answers "
+                                 f"({control})")
+            # the zone at 100k names is most of the footprint: growth
+            # counts from here
+            rss_before = rss_kb(proc.pid)
+
+            # 2. the flood in its own process, the same probe under it
+            out_path = os.path.join(tmp, "flood.json")
+            err_path = os.path.join(tmp, "flood.err")
+            with open(out_path, "wb") as out, open(err_path, "wb") as err:
+                flood = subprocess.Popen(
+                    [sys.executable, "-m", "binder_torch.loadgen.hostile",
+                     "--port", str(port), "--duration", str(duration),
+                     "--flows", str(HOSTILE_FLOWS),
+                     "--qps", str(HOSTILE_FLOOD_QPS), "--domain", DOMAIN,
+                     "--names-file", names_path],
+                    cwd=ROOT, stdout=out, stderr=err)
+            time.sleep(0.5)     # let the flood trip the limiter first
+            under = legit_probe("127.0.0.1", port,
+                                duration=max(1.0, duration - 1.5),
+                                names=names, domain=DOMAIN,
+                                qps=HOSTILE_LEGIT_QPS)
+            report["under_flood"] = under
+            try:
+                rc = flood.wait(timeout=duration + 30)
+            except subprocess.TimeoutExpired:
+                raise PhaseError("hostile: the flood did not end")
+            if rc != 0:
+                raise PhaseError(
+                    f"hostile: the flood exited {rc}: "
+                    + read_bytes(err_path)[-600:].decode(errors="replace"))
+            flood_report = json.loads(read_bytes(out_path))
+            report["flood"] = {k: flood_report[k] for k in (
+                "duration_s", "flows", "hostile_qps", "sent", "mix")}
+            report["categories"] = flood_report["categories"]
+            if proc.poll() is not None:
+                raise PhaseError(f"hostile: the server exited "
+                                 f"{proc.returncode} under the flood")
+            rss_after = rss_kb(proc.pid)
+            report["rss_kb"] = [rss_before, rss_after]
+            report["rss_growth_kb"] = rss_after - rss_before
+
+            # 3. RRL engaged: the spoof prefixes were slipped and dropped
+            spoof = flood_report["categories"]["spoof"]
+            if not (spoof["slipped"] or spoof["dropped"]):
+                errors.append(f"spoof flood never rate-limited ({spoof})")
+            if not spoof["slipped"]:
+                errors.append(f"no TC=1 slips seen (slipRatio 2): {spoof}")
+            # 4. malformed frames: FORMERR or no reply, never an answer
+            # (the reference's allowance for a reply attributed to the
+            # wrong category of a flow that shares query IDs)
+            bad = flood_report["categories"]["malformed"]
+            if bad["sent"] and bad["answered"] > 0.02 * bad["sent"] + 3:
+                errors.append(f"malformed frames got answers ({bad})")
+            # 5. goodput under the flood against the control
+            ratio = under["qps"] / control["qps"]
+            report["goodput_ratio"] = ratio
+            if ratio < HOSTILE_GOODPUT_FLOOR:
+                errors.append(f"goodput under the flood {under['qps']} "
+                              f"qps, control {control['qps']}: ratio "
+                              f"{ratio} < {HOSTILE_GOODPUT_FLOOR}")
+            # 6. bounded state
+            if report["rss_growth_kb"] > HOSTILE_MAX_RSS_GROWTH_KB:
+                errors.append(f"RSS grew {report['rss_growth_kb']} kB "
+                              f"(cap {HOSTILE_MAX_RSS_GROWTH_KB})")
+            text = http_json(mport, "/metrics")
+            report["rrl"] = rrl_readings(text)
+            report["shed_response_ratelimit"] = series_value(
+                text, "binder_shed_total", 'reason="response-ratelimit"')
+            if report["rrl"]["buckets"] > HOSTILE_RRL["maxBuckets"]:
+                errors.append(f"binder_rrl_buckets "
+                              f"{report['rrl']['buckets']} > maxBuckets")
+            # 7. observability
+            errors += [f"rrl metrics: {e}"
+                       for e in validate_rrl_metrics(text)[:3]]
+            if report["rrl"]["dropped_total"] <= 0:
+                errors.append("binder_rrl_dropped_total never moved")
+            if report["shed_response_ratelimit"] <= 0:
+                errors.append('binder_shed_total{reason="response-'
+                              'ratelimit"} never moved')
+            status = http_json(mport, "/status")
+            errors += [f"status: {e}"
+                       for e in validate_status_snapshot(status)[:3]]
+            rrl_status = (status.get("policy") or {}).get("rrl")
+            if not rrl_status or not rrl_status.get("dropped"):
+                errors.append(f"/status policy.rrl missing or idle "
+                              f"({rrl_status})")
+            # 8. the C lane stayed resident and served
+            after = native_reading(mport)
+            report["c_lane"] = native_delta(before, after)
+            errors += native_gate("hostile", before, after)
+            # 9. the server answers normally after the flood
+            report["after"] = legit_probe("127.0.0.1", port, duration=1.0,
+                                          names=names, domain=DOMAIN,
+                                          qps=50)
+            if not report["after"]["answered"]:
+                errors.append("server unhealthy after the flood")
+        except PhaseError:
+            if os.path.exists(log_path):
+                tail = read_bytes(log_path)[-3000:].decode(errors="replace")
+                log(f"--- hostile server.log (last 3000 bytes) ---\n{tail}")
+            raise
+        finally:
+            reap(flood)
+            reap(proc)
+    left = descendants(os.getpid())
+    report["phase_s"] = time.monotonic() - t_phase
+    report["errors"] = len(errors)
+    log(json.dumps({"hostile": report}))
+    if native is not None:
+        native["hostile"] = report["c_lane"]
+    check_phase("hostile", errors, left)
+    return report
+
+
+# -- phase 10: population ---------------------------------------------
+
+#: ``tools/population_smoke.py``'s settings: the RRL limit (leg A with
+#: the direct cohort's /16 allowlisted, leg B with the probe's /24),
+#: the floors, and ``make ci``'s 10 s stream (``Makefile:64``); leg A
+#: runs ``run_population``'s own defaults
+POP_RRL = {"responsesPerSecond": 60, "burst": 120, "slipRatio": 2,
+           "maxBuckets": 512, "adaptive": True, "adaptEvidence": 3}
+POP_SECONDS = 10.0
+POP_GOODPUT_FLOOR = 0.5
+POP_FP_CEILING = 0.10
+ROLL_SHARDS = 2
+#: leg B's chaos block at ``make ci``'s trim (flood at 15% and the
+#: roll at 25% of its 6 s budget).  The reference's flood is n=400:
+#: 100 packets to each of the 4 flood /24s, under their burst of 120
+#: on an exact limiter, so its gate held only where a sampler charged
+#: a burst more than its size (a whole sampled readiness event at 8
+#: tokens a packet).  n=1600 sends 200 from each of the flood's 8
+#: sockets: past the burst on either worker the socket hashes to.
+ROLL_FLOOD = 1600
+ROLL_PLAN = f"at 1.0 rrl-flood n={ROLL_FLOOD}; at 1.5 worker-roll"
+ROLL_RETRY_TOLERANCE = 3
+#: the probe runs until both rolls are done; at 100,000 names each
+#: replacement catches up from a snapshot of the whole zone
+ROLL_WAIT_S = 300.0
+ROLL_PROBE_TIMEOUT_S = 1.5
+
+
+def population_leg(hosts: int, duration: float) -> dict:
+    """Leg A: ``run_population`` against one server with RRL v2."""
+    from binder_torch.loadgen.population import run_population
+    from tools.lint import validate_rrl_metrics, validate_status_snapshot
+    names = zone_names(hosts, SEED + 6)
+    report = {"zone_names": hosts, "duration_s": duration}
+    errors = []
+    proc = None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pop_") as tmp:
+        log_path = os.path.join(tmp, "server.log")
+        try:
+            t0 = time.monotonic()
+            proc, port = boot_server(
+                write_config(tmp, hosts, rrl=dict(
+                    POP_RRL, allowlist=["127.10.0.0/16"])),
+                log_path, "population: server")
+            report["boot_s"] = time.monotonic() - t0
+            mport = metrics_port(log_path)
+            report.update(settle_zone(mport, "population"))
+            before = native_reading(mport)
+            pop = run_population("127.0.0.1", port, duration=duration,
+                                 names=names, domain=DOMAIN)
+            report.update({k: pop[k] for k in (
+                "population", "offered", "cohorts", "identity_outcomes",
+                "farm_goodput_ratio", "rrl_false_positive_rate",
+                "ttl_observed")})
+            if proc.poll() is not None:
+                raise PhaseError(f"population: the server exited "
+                                 f"{proc.returncode} under load")
+            if pop["farm_goodput_ratio"] < POP_GOODPUT_FLOOR:
+                errors.append(f"farm goodput {pop['farm_goodput_ratio']}"
+                              f" < {POP_GOODPUT_FLOOR}")
+            if pop["rrl_false_positive_rate"] > POP_FP_CEILING:
+                errors.append(f"RRL false-positive rate "
+                              f"{pop['rrl_false_positive_rate']} > "
+                              f"{POP_FP_CEILING}")
+            text = http_json(mport, "/metrics")
+            report["rrl"] = rrl = rrl_readings(text)
+            errors += [f"rrl metrics: {e}"
+                       for e in validate_rrl_metrics(text)[:3]]
+            if rrl["dropped_total"] <= 0:
+                errors.append("the spoofed overlay was never dropped")
+            if rrl["adaptations_total"] < 1:
+                errors.append("adaptive buckets never engaged (no TCP "
+                              f"retry evidence consumed): {rrl}")
+            if rrl["allowlisted_total"] <= 0:
+                errors.append("the allowlisted direct cohort was never "
+                              "counted")
+            status = http_json(mport, "/status")
+            errors += [f"status: {e}"
+                       for e in validate_status_snapshot(status)[:3]]
+            report["status_rrl"] = (status.get("policy") or {}).get("rrl")
+            after = native_reading(mport)
+            report["c_lane"] = native_delta(before, after)
+            errors += native_gate("population", before, after)
+        except PhaseError:
+            if os.path.exists(log_path):
+                tail = read_bytes(log_path)[-3000:].decode(errors="replace")
+                log(f"--- population server.log (last 3000 bytes) ---\n"
+                    f"{tail}")
+            raise
+        finally:
+            reap(proc)
+    report["errors"] = errors
+    return report
+
+
+def roll_probe(port: int, name: str, qid: int) -> int:
+    """One closed-loop query from the allowlisted probe address: the
+    try it was answered NOERROR on (1 to 3), or 0 when none was."""
+    from binder_torch.dns import Type, make_query
+    wire = make_query(name, Type.A, qid=(qid % 65535) + 1).encode()
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        s.connect(("127.0.0.1", port))
+        s.settimeout(ROLL_PROBE_TIMEOUT_S)
+        for attempt in range(1, 4):
+            s.send(wire)
+            try:
+                reply = s.recv(65535)
+            except socket.timeout:
+                continue
+            if len(reply) >= 12 and (reply[3] & 0xF) == 0:
+                return attempt
+    return 0
+
+
+def rolling_leg(hosts: int, duration: float = 6.0) -> dict:
+    """Leg B: a 2-shard group under the chaos block's flood and
+    ``worker-roll``, then SIGHUP, with a closed-loop probe throughout."""
+    from tools.lint import validate_shard_metrics
+    names = zone_names(hosts, SEED + 7)
+    report = {"zone_names": hosts, "shards": ROLL_SHARDS,
+              "plan": ROLL_PLAN,
+              "departure": f"rrl-flood n={ROLL_FLOOD}, where the "
+                           "reference smoke's n=400 leaves each flood "
+                           "/24 under its burst"}
+    errors = []
+    group = None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_roll_") as tmp:
+        group_log = os.path.join(tmp, "group.log")
+        try:
+            config = write_config(
+                tmp, hosts, shards=ROLL_SHARDS,
+                rrl=dict(POP_RRL, allowlist=["127.0.0.0/24"]),
+                chaos={"plan": ROLL_PLAN})
+            t0 = time.monotonic()
+            group = spawn(["-m", "binder_torch.main", "-f", config, "-p",
+                           "0"], group_log)
+            wait_line(group, group_log, rb"chaos: FaultPlan armed",
+                      "population: shard group", DEPLOY_BOOT_DEADLINE_S)
+            report["boot_s"] = time.monotonic() - t0
+            text = read_bytes(group_log)
+            port = int(re.search(rb"UDP DNS service started on "
+                                 rb"[\d.]+:(\d+)", text).group(1))
+            mport = int(re.search(rb"metrics server started on port "
+                                  rb"(\d+)", text).group(1))
+            pids0 = [w["pid"] for w in
+                     http_json(mport, "/status")["shards"]["workers"]]
+            if len(set(pids0)) != ROLL_SHARDS:
+                raise PhaseError(f"population: expected {ROLL_SHARDS} "
+                                 f"worker pids, got {pids0}")
+            probe = {"queries": 0, "retried": 0, "lost": 0}
+            pids1, lines1 = [], []
+            sighup_at = None
+            t0 = time.monotonic()
+            deadline = t0 + ROLL_WAIT_S
+            i = 0
+            rolls = 0
+            while time.monotonic() < deadline:
+                i += 1
+                tries = roll_probe(port, names[i % len(names)], i)
+                probe["queries"] += 1
+                if tries == 0:
+                    probe["lost"] += 1
+                elif tries > 1:
+                    probe["retried"] += 1
+                if i % 10 == 0:
+                    rolls = http_json(mport, "/status")["shards"][
+                        "rolls_total"]
+                    if rolls >= ROLL_SHARDS and sighup_at is None:
+                        # the chaos roll is done: the config-reload
+                        # entry point rolls the same live group again
+                        pids1 = [w["pid"] for w in http_json(
+                            mport, "/status")["shards"]["workers"]]
+                        lines1 = [cmdline(p) for p in pids1]
+                        group.send_signal(signal.SIGHUP)
+                        sighup_at = time.monotonic() - t0
+                    elif rolls >= 2 * ROLL_SHARDS:
+                        break
+                time.sleep(max(0.005, duration / 400.0))
+            report["rolls_s"] = time.monotonic() - t0
+            report["sighup_at_s"] = sighup_at
+            report["probe"] = probe
+            snap = http_json(mport, "/status")["shards"]
+            pids2 = [w["pid"] for w in snap["workers"]]
+            report.update(rolls_total=snap["rolls_total"],
+                          roll_aborts=snap["roll_aborts"],
+                          pids={"boot": pids0, "after_chaos_roll": pids1,
+                                "after_sighup_roll": pids2})
+            if snap["rolls_total"] < 2 * ROLL_SHARDS:
+                errors.append(f"{snap['rolls_total']} rolls in "
+                              f"{ROLL_WAIT_S:.0f}s (want "
+                              f"{2 * ROLL_SHARDS}: chaos and SIGHUP)")
+            if snap["roll_aborts"]:
+                errors.append(f"{snap['roll_aborts']} roll(s) aborted")
+            if (not pids1 or set(pids1) & set(pids0)
+                    or set(pids2) & set(pids1) or set(pids2) & set(pids0)):
+                errors.append(f"worker pids survived a roll: {pids0} -> "
+                              f"{pids1} -> {pids2}")
+            for line in lines1 + [cmdline(p) for p in pids2]:
+                if "-m binder_torch.main" not in line or \
+                        "binder_tpu" in line:
+                    errors.append(f"a new worker runs {line!r}")
+            if probe["lost"]:
+                errors.append(f"{probe['lost']} probe quer(ies) lost "
+                              f"across {snap['rolls_total']} rolls")
+            if probe["retried"] > ROLL_RETRY_TOLERANCE:
+                errors.append(f"{probe['retried']} probe retries "
+                              f"(tolerance {ROLL_RETRY_TOLERANCE})")
+            text = read_bytes(group_log)
+            report["quiesced_clean"] = quiesced = text.count(
+                b"quiesced clean")
+            if quiesced < 2 * ROLL_SHARDS:
+                errors.append(f"{quiesced} clean quiesces logged (want "
+                              f"{2 * ROLL_SHARDS})")
+            first_done = text.find(b"shard 0 rolled: pid")
+            second_spawn = text.find(b"shard 1 replacement spawned")
+            if first_done == -1 or second_spawn < first_done:
+                errors.append("rolls not sequential: shard 1's "
+                              "replacement spawned before shard 0 was "
+                              "promoted")
+            metrics = http_json(mport, "/metrics")
+            errors += [f"shard metrics: {e}"
+                       for e in validate_shard_metrics(metrics)[:3]]
+            report["shard_rolls"] = shard_series(
+                mport, "binder_shard_rolls_total")
+            report["shard_roll_aborts"] = metric_sum(
+                metrics, "binder_shard_roll_aborts_total")
+            if report["shard_rolls"] != {k: 2.0
+                                         for k in range(ROLL_SHARDS)}:
+                errors.append(f"binder_shard_rolls_total "
+                              f"{report['shard_rolls']}, want 2 a shard")
+            if report["shard_roll_aborts"]:
+                errors.append(f"binder_shard_roll_aborts_total "
+                              f"{report['shard_roll_aborts']}")
+            report["rrl_dropped"] = metric_sum(metrics,
+                                               "binder_shard_rrl_dropped")
+            if report["rrl_dropped"] <= 0:
+                errors.append("the rrl-flood never engaged the workers' "
+                              "RRL")
+            group.send_signal(signal.SIGTERM)
+            try:
+                report["drain_rc"] = group.wait(timeout=DRAIN_DEADLINE_S)
+            except subprocess.TimeoutExpired:
+                raise PhaseError("population: supervisor did not drain")
+            if report["drain_rc"] != 0:
+                errors.append(f"supervisor exited {report['drain_rc']}")
+            deadline = time.monotonic() + 10
+            while any(os.path.exists(f"/proc/{p}") for p in pids2):
+                if time.monotonic() > deadline:
+                    errors.append(f"workers {pids2} outlived the drain")
+                    break
+                time.sleep(0.05)
+        except PhaseError:
+            if os.path.exists(group_log):
+                tail = read_bytes(group_log)[-4000:].decode(
+                    errors="replace")
+                log(f"--- population group.log (last 4000 bytes) ---\n"
+                    f"{tail}")
+            raise
+        finally:
+            reap(group)
+    report["errors"] = errors
+    return report
+
+
+def population_phase(hosts: int = HOSTS, duration: float = POP_SECONDS,
+                     native=None):
+    """Port of ``tools/population_smoke.py`` at the serve phase's zone:
+    leg A, the population against RRL v2; leg B, rolls under a flood."""
+    t_phase = time.monotonic()
+    a = population_leg(hosts, duration)
+    b = rolling_leg(hosts)
+    left = descendants(os.getpid())
+    errors = [f"leg A: {e}" for e in a.pop("errors")] + \
+        [f"leg B: {e}" for e in b.pop("errors")]
+    log(json.dumps({"population": {
+        "departure": NAMES_DEPARTURE.format(n=hosts), "leg_a": a,
+        "leg_b": b, "phase_s": time.monotonic() - t_phase,
+        "errors": len(errors)}}))
+    if native is not None:
+        native["population"] = a["c_lane"]
+    check_phase("population", errors, left)
+    return a, b
+
+
+# -- phase 11: aggregate ----------------------------------------------
 
 
 def reference_percentile(ordered: np.ndarray, q: float) -> np.float32:
@@ -3453,7 +3990,7 @@ def aggregate_phase(torch, latencies, sharded) -> None:
     hold_aggregate(torch, aggregate, big, "lognormal 2**24+1")
 
 
-# -- phase 10: collective ---------------------------------------------
+# -- phase 12: collective ---------------------------------------------
 
 
 def collective_phase() -> None:
@@ -3490,6 +4027,8 @@ def main() -> int:
         topology_phase(native=native)
         systemd_phase(native=native)
         chaos_phase(native=native)
+        hostile_phase(native=native)
+        population_phase(native=native)
         aggregate_phase(torch, latencies, sharded)
         collective_phase()
     except PhaseError as e:

@@ -13,11 +13,12 @@ sorted record sets; every other reply is compared byte for byte.
 
 The port must never load the reference: a fresh interpreter that
 imports the port's entry points, its deploy-path modules (ZooKeeper,
-shard group, recursion, federation, config render), its operator CLIs
-and its ``systemctl`` stand-in holds no
+shard group, recursion, federation, config render), its operator CLIs,
+its ``systemctl`` stand-in and its traffic clients holds no
 ``binder_tpu``, ``jax`` or ``__graft_entry__`` module afterwards, no
 file of the port (nor ``chip_smoke.py``) imports one, only
 ``graft_entry`` imports torch (the deploy-path modules load without it),
+the smoke takes nothing from ``tools/`` but ``tools.lint``'s validators,
 and a config with a ``chaos`` block runs the port's fault injection in
 a shard group whose respawned worker is the port's, leaving no process
 behind.
@@ -181,11 +182,14 @@ def fresh_imports(modules):
 INSTALL_MODULES = ("binder_torch.cli.bdig", "binder_torch.cli.zkput",
                    "binder_torch.cli.config_render",
                    "binder_torch.deploy.systemctl_shim")
+LOADGEN_MODULES = ("binder_torch.loadgen.hostile",
+                   "binder_torch.loadgen.population")
 
 
 def test_fresh_interpreter_imports_no_reference():
     added = fresh_imports(("binder_torch.main", "binder_torch.graft_entry")
-                          + DEPLOY_MODULES + INSTALL_MODULES)
+                          + DEPLOY_MODULES + INSTALL_MODULES
+                          + LOADGEN_MODULES)
     # everything a bare interpreter holds (site, .pth files,
     # sitecustomize), which ``added`` cannot see
     bare = ("import sys, json; "
@@ -195,7 +199,7 @@ def test_fresh_interpreter_imports_no_reference():
         env=dict(os.environ, PYTHONPATH=ROOT)))
     assert baseline
     assert "binder_torch.graft_entry" in added and "torch" in added
-    for name in DEPLOY_MODULES + INSTALL_MODULES:
+    for name in DEPLOY_MODULES + INSTALL_MODULES + LOADGEN_MODULES:
         assert name in added
     for name in added:
         assert name.split(".")[0] not in FORBIDDEN, name
@@ -250,10 +254,14 @@ def test_port_sources_import_no_reference():
             if (top not in sys.stdlib_module_names
                     and top != "binder_torch"):
                 third_party.setdefault(rel, set()).add(top)
+            if top == "tools":
+                # the exposition and snapshot validators: stdlib-only,
+                # package-neutral; never the reference's traffic clients
+                assert mod == "tools.lint", (rel, mod)
     # the serve modules stay stdlib-only; torch lives in graft_entry
     assert third_party == {
         os.path.join("binder_torch", "graft_entry.py"): {"numpy", "torch"},
-        "chip_smoke.py": {"numpy", "torch"},
+        "chip_smoke.py": {"numpy", "torch", "tools"},
     }
 
 
