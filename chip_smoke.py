@@ -107,15 +107,64 @@ it started and exits non-zero without printing the ``ok`` line:
    reference smokes, both printed: the name population (the zone's
    100,000 hosts, not 8 or 16), and leg B's flood of 1,600 packets, not
    400 (``ROLL_PLAN`` says why).
-11. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
+11. federation: ``tools/federation_smoke.py`` on the port, in processes,
+   at the serve phase's zone a datacenter.  Two ``west`` servers on
+   127.0.0.2; a federated ``east`` whose fake store carries
+   ``/dcs/{east,west}`` (TTL clamp 15, the shipped cache of 4,096);
+   and (b) a second ``east`` routed by ``recursion.ufds`` over LDAPS
+   (the port's ``LdapTestServer`` in this process, a CA and a
+   certificate from the ``openssl`` command line): the discovered map
+   routes ``west`` and a west name asked with RD=1 comes back
+   byte-identical to west's own answer; that binder stops before the
+   LDAP server does.  Then (a): 256 forwarded answers byte-identical
+   to west's, a working set of 2,000 west names asked once, and a 10 s
+   stream of local and foreign names in turn, one query at a time with
+   no retry, with both west processes SIGKILLed at 55% of it.  Gates:
+   every foreign answer after dark NOERROR with the right address and
+   a TTL of at most 15 (and every working-set name again after the
+   stream), a never-seen west name REFUSED, no client-visible timeout
+   (2.5 s), local p50 and p99 within the reference's bounds, the first
+   stale answer within 5 s, ``validate_federation_metrics``, ``/status
+   federation.dark == ["west"]`` with a convergence time, ``bin/bstat``
+   rendering ``(DARK)``, the ``dc-join``, ``dc-dark`` and
+   ``federation-failover`` flight events, east's C lane serving.
+12. verify: the in-process half of ``tools/verify_smoke.py`` at the
+   serve phase's zone: a ``BinderServer`` in this process with the
+   verifier (audit every 0.05 s) and both precompile tiers on, the C
+   lane resident.  Once the zone fill and the precompile seed have
+   settled, a 10 s clean soak of churn and queries: no violation,
+   every invariant checked, a full audit pass, every propagation stage
+   from ``mirror-apply`` to ``compiled-install`` observed, the verify
+   exposition and ``/status`` valid, RSS growth within 96 MiB.  Then
+   ``corrupt-answer`` and ``drop-reverse`` through the port's
+   ``ChaosDriver`` and one ``audit_cycle()``: each detected, each seen
+   as a flight event, in ``binder_verify_violations_total`` and in
+   ``/status verify.recent_violations``; the cycle's seconds and
+   checks/s are printed, and what served the corrupted name.
+13. tcp: ``tools/tcp_smoke.py`` against ``python -m binder_torch.main``
+   at the serve phase's zone with a 4,096-byte write cap, read through
+   ``/status`` and ``/metrics``: one-shot serves and closes counted, a
+   second pipelined burst promoted and a burst coalesced, a slow
+   reader dropped at the cap while another client is served, a
+   half-closed client answered, the connection table empty again after
+   a torn frame and RST, ``validate_tcp_metrics`` and a valid ``tcp``
+   section, the C lane serving.
+14. conformance: glibc's resolver against the tcp phase's server
+   (``binder_torch.cli.libresolv_probe --server``, which points
+   ``_res`` at the server's port): a host's A record and its TTL, its
+   PTR, the fixture's SRV with its A additionals and the OPT echo of
+   payload 1232, each parsed by ``ns_parserr``; and the RFC golden
+   byte-vectors through ``binder_torch.dns``.
+15. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
    over the serve and deploy latencies and over a seeded 2**24 + 1
    batch, held against numpy.
-12. collective: the data-parallel mean over NCCL on the one card.
+16. collective: the data-parallel mean over NCCL on the one card.
 
 The port has no hand-written GPU kernel (the JAX package has no Pallas
 kernel to port; the native code is host code), so the kernel line is
 an empty list.  Before it, a ``{"native": ...}`` line carries the build
-seconds, the lane parity and the C lane's hits in each phase.  The last
+seconds, the lane parity and the C lane's hits in each phase.  Phases 9
+to 14 print each of their departures from the reference smoke.  The last
 line is ``{"ok": true, "device": {...}}``.  ``--churn ZK_PORT
 DNS_PORT [--spread]`` is the deploy and topology phases'
 churn process, started by the script itself; ``--churn-cost N[,N...]``
@@ -131,6 +180,7 @@ import os
 import random
 import re
 import select
+import shutil
 import signal
 import socket
 import struct
@@ -368,8 +418,10 @@ def native_phase(hosts: int = HOSTS):
 # -- phase 3: serve ---------------------------------------------------
 
 
-def host_name(i: int, racks: int) -> str:
-    return f"h{i:06d}.r{i % racks:04d}.zs.{DOMAIN}"
+def host_name(i: int, racks: int, sub: str = "zs") -> str:
+    """Synthetic host ``i`` of a zone under ``<sub>.<DOMAIN>``
+    (``populate_synthetic``'s layout)."""
+    return f"h{i:06d}.r{i % racks:04d}.{sub}.{DOMAIN}"
 
 
 def host_addr(i: int) -> str:
@@ -388,17 +440,24 @@ def zone_fixture():
     return fixture
 
 
-def write_config(tmp: str, hosts: int, **extra) -> str:
-    fixture_path = os.path.join(tmp, "fixture.json")
+def write_config(tmp: str, hosts: int, *, name: str = "config",
+                 dc: str = "dc0", host: str = "127.0.0.1",
+                 subtree: str = "zs", fixture=None, **extra) -> str:
+    """A single-process server's config, ``<tmp>/<name>.json``:
+    datacenter ``dc`` on ``host``, the shipped fixture and the ``big``
+    service plus ``fixture``, and ``hosts`` synthetic hosts under
+    ``<subtree>.<DOMAIN>``; ``extra`` sets further top-level keys."""
+    data = zone_fixture()
+    data.update(fixture or {})
+    fixture_path = os.path.join(tmp, f"{name}-fixture.json")
     with open(fixture_path, "w") as f:
-        json.dump(zone_fixture(), f)
-    config_path = os.path.join(tmp, "config.json")
+        json.dump(data, f)
+    config_path = os.path.join(tmp, f"{name}.json")
     with open(config_path, "w") as f:
         json.dump(dict({
-            "dnsDomain": DOMAIN, "datacenterName": "dc0",
-            "host": "127.0.0.1",
+            "dnsDomain": DOMAIN, "datacenterName": dc, "host": host,
             "store": {"backend": "fake", "fixture": fixture_path,
-                      "synthetic": {"hosts": hosts}},
+                      "synthetic": {"hosts": hosts, "subtree": subtree}},
             "queryLog": False,
             # one client address drives the whole stream: keep the
             # limiter on but let loopback through
@@ -1043,6 +1102,14 @@ def a_addrs(data: bytes):
             if hasattr(r, "address")]
 
 
+def same_but_id_ra(a: bytes, b: bytes) -> bool:
+    """Byte-identical but for the ID and the forwarder's RA bit."""
+    a, b = bytearray(a), bytearray(b)
+    a[3] |= 0x80
+    b[3] |= 0x80
+    return a[2:] == b[2:]
+
+
 def wait_everywhere(port: int, name: str, addr: str, flows: int,
                     deadline_s: float) -> float:
     """Seconds until ``flows`` fresh sockets all get ``addr``."""
@@ -1356,14 +1423,12 @@ def cross_dc(port: int, dc1_port: int):
     errors = []
     for k, name in enumerate(sorted(DC1_HOSTS)):
         fqdn = f"{name}.dc1.{DOMAIN}"
-        via = bytearray(fresh_ask(port, fqdn, 0x100 + k, rd=True))
-        direct = bytearray(fresh_ask(dc1_port, fqdn, 0x200 + k,
-                                     host="127.0.0.2", rd=True))
-        if a_addrs(bytes(via)) != [DC1_HOSTS[name]]:
-            errors.append(f"{fqdn} via dc0: {a_addrs(bytes(via))}")
-        via[3] &= 0x7F
-        direct[3] &= 0x7F
-        if via[2:] != direct[2:]:
+        via = fresh_ask(port, fqdn, 0x100 + k, rd=True)
+        direct = fresh_ask(dc1_port, fqdn, 0x200 + k, host="127.0.0.2",
+                           rd=True)
+        if a_addrs(via) != [DC1_HOSTS[name]]:
+            errors.append(f"{fqdn} via dc0: {a_addrs(via)}")
+        if not same_but_id_ra(via, direct):
             errors.append(f"{fqdn}: dc0's forward differs from dc1's "
                           "own answer beyond ID and RA")
     return errors
@@ -3914,7 +3979,1174 @@ def population_phase(hosts: int = HOSTS, duration: float = POP_SECONDS,
     return a, b
 
 
-# -- phase 11: aggregate ----------------------------------------------
+# -- phase 11: federation ---------------------------------------------
+
+#: ``tools/federation_smoke.py``'s settings at ``make ci``'s trim
+#: (``BINDER_FEDERATION_SECONDS=10``, ``Makefile:59``): the stream, the
+#: TTL clamp on stale answers, the west group's size, the incident at
+#: 55% of the stream, the client's deadline and the latency and
+#: failover bounds (``federation_smoke.py:150-300``)
+FED_SECONDS = 10.0
+FED_TTL_CLAMP_S = 15
+FED_WEST_PEERS = 2
+FED_DARK_AT = 0.55
+FED_CLIENT_TIMEOUT_S = 2.5
+FED_LOCAL_P99_S = 0.25
+FED_FIRST_STALE_S = 5.0
+#: the foreign names the stream asks: each once before dark, within the
+#: shipped foreign-answer cache (``cacheSize`` 4,096), so none is evicted
+FED_WORKING_SET = 2_000
+FED_PARITY_SAMPLE = 256
+FED_SWEEP_THREADS = 16
+FED_REGION = "home"
+FED_UFDS_DEADLINE_S = 60.0
+#: the reference smoke builds its binders without admission control;
+#: the production default holds one client to 50 forwards a second,
+#: which the working set's first pass from one address would trip
+FED_ADMISSION = {"recursionRate": 1000000, "recursionBurst": 1000000}
+FED_DEPARTURES = (
+    "names: {hosts} synthetic hosts a datacenter, where the reference "
+    "smoke serves 8",
+    "processes: every binder is its own python -m binder_torch.main, "
+    "where the reference smoke runs all of them in one process; west's "
+    "two each hold their own mirror of one zone",
+    "admission: recursionRate and recursionBurst lifted (the reference "
+    "smoke's servers have no admission control)",
+    "working set: {working} foreign names, each asked once before the "
+    "stream and all of them again after it",
+    "ufds: ldaps://ufds.foo.com:<port>, the LDAP test server's "
+    "ephemeral port in place of 636")
+#: the UFDS service east resolves ``ufds.foo.com`` through (its mirror)
+UFDS_FIXTURE = {
+    "/com/foo/ufds": {"type": "service",
+                      "service": {"srvce": "_ldap", "proto": "_tcp",
+                                  "port": 636}},
+    "/com/foo/ufds/lb0": {"type": "load_balancer",
+                          "load_balancer": {"address": "127.0.0.1"}}}
+
+
+def ask_once(port: int, wire: bytes, host: str = "127.0.0.1",
+             timeout: float = FED_CLIENT_TIMEOUT_S):
+    """One query on a fresh socket, never retried: the reply, or None
+    past ``timeout`` (a client-visible timeout)."""
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.settimeout(timeout)
+        s.sendto(wire, (host, port))
+        try:
+            return s.recv(65535)
+        except socket.timeout:
+            return None
+
+
+def make_pki(tmp: str):
+    """A CA and a certificate for ``ufds.foo.com`` and 127.0.0.1 signed
+    by it, made with the ``openssl`` command line; returns the paths
+    ``(ca, cert, key)``."""
+    openssl = shutil.which("openssl")
+    if openssl is None:
+        raise PhaseError("federation: no openssl on this host; the UFDS "
+                         "leg needs it for its certificates")
+    ca, ca_key = os.path.join(tmp, "ca.pem"), os.path.join(tmp, "ca.key")
+    cert, key = os.path.join(tmp, "ufds.pem"), os.path.join(tmp, "ufds.key")
+    csr, ext = os.path.join(tmp, "ufds.csr"), os.path.join(tmp, "ufds.ext")
+    with open(ext, "w") as f:
+        f.write(f"subjectAltName=DNS:ufds.{DOMAIN},IP:127.0.0.1\n"
+                "basicConstraints=critical,CA:FALSE\n"
+                "keyUsage=critical,digitalSignature\n"
+                "extendedKeyUsage=serverAuth\n"
+                "authorityKeyIdentifier=keyid\n")
+    ec = ["-newkey", "ec", "-pkeyopt", "ec_paramgen_curve:prime256v1",
+          "-nodes"]
+    for args in (
+            ["req", "-x509", *ec, "-keyout", ca_key, "-out", ca,
+             "-days", "2", "-subj", "/CN=binder-smoke-ca",
+             "-addext", "basicConstraints=critical,CA:TRUE",
+             "-addext", "keyUsage=critical,keyCertSign,cRLSign"],
+            ["req", *ec, "-keyout", key, "-out", csr,
+             "-subj", f"/CN=ufds.{DOMAIN}"],
+            ["x509", "-req", "-in", csr, "-CA", ca, "-CAkey", ca_key,
+             "-set_serial", "2", "-days", "2", "-out", cert,
+             "-extfile", ext]):
+        out = subprocess.run([openssl, *args], capture_output=True,
+                             timeout=60)
+        if out.returncode != 0:
+            raise PhaseError(f"federation: openssl {args[0]} exited "
+                             f"{out.returncode}: "
+                             + out.stderr.decode(errors="replace")[-400:])
+    return ca, cert, key
+
+
+class LdapThread:
+    """The port's ``LdapTestServer`` serving ldaps from its own event
+    loop, in a thread of this process."""
+
+    def __init__(self, entries, cert: str, key: str):
+        import ssl
+        import threading
+        from binder_torch.recursion.ldap_server import LdapTestServer
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(cert, key)
+        self.server = LdapTestServer(entries=entries, ssl_context=ctx)
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="ldaps", daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        asyncio.run_coroutine_threadsafe(self.server.start(),
+                                         self.loop).result(10)
+        return self.server
+
+    def __exit__(self, *exc) -> None:
+        try:
+            asyncio.run_coroutine_threadsafe(self.server.stop(),
+                                             self.loop).result(10)
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(10)
+            self.loop.close()
+
+
+def boot_all(specs, started):
+    """Start ``python -m binder_torch.main`` for every ``(config, log,
+    what)`` at once, each added to ``started`` (the caller reaps them);
+    return the processes and, once each serves, their UDP ports."""
+    procs = [spawn(["-m", "binder_torch.main", "-f", config, "-p", "0"],
+                   log_path) for config, log_path, _ in specs]
+    started += procs
+    ports = []
+    for proc, (_, log_path, what) in zip(procs, specs):
+        m = wait_line(proc, log_path,
+                      rb"UDP DNS service started on [\d.]+:(\d+)", what,
+                      BOOT_DEADLINE_S)
+        ports.append(int(m.group(1)))
+    return procs, ports
+
+
+def ask_all(port: int, wires):
+    """Every wire asked once (``ask_once``) from ``FED_SWEEP_THREADS``
+    threads; the replies (None for a timeout) in order."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(FED_SWEEP_THREADS) as pool:
+        return list(pool.map(lambda w: ask_once(port, w), wires))
+
+
+def answer_errors(what: str, name: str, data, addr: str, clamp=None):
+    """Why ``data`` is not a NOERROR answer of ``addr`` (with a TTL of
+    at most ``clamp`` when given); empty when it is."""
+    from binder_torch.dns import Message, Rcode
+    if data is None:
+        return [f"{what}: client-visible timeout for {name}"]
+    msg = Message.decode(data)
+    if msg.rcode != Rcode.NOERROR or not msg.answers:
+        return [f"{what}: {name} got rcode {msg.rcode} with "
+                f"{len(msg.answers)} answer(s)"]
+    if msg.answers[0].address != addr:
+        return [f"{what}: {name} served {msg.answers[0].address}, "
+                f"want {addr}"]
+    if clamp is not None and msg.answers[0].ttl > clamp:
+        return [f"{what}: {name} TTL {msg.answers[0].ttl} > clamp "
+                f"{clamp} (not stale-served?)"]
+    return []
+
+
+def ufds_leg(port: int, mport: int, west_port: int, name: str) -> dict:
+    """Discovery over LDAPS routed ``west``, and a west name asked with
+    RD=1 comes back byte-identical to west's own answer."""
+    from binder_torch.dns import Type, make_query
+    t0 = time.monotonic()
+    while True:
+        rec = http_json(mport, "/status").get("recursion") or {}
+        dcs = rec.get("datacenters") or {}
+        if dcs.get("west"):
+            break
+        if time.monotonic() - t0 > FED_UFDS_DEADLINE_S:
+            raise PhaseError(f"federation: UFDS discovery did not route "
+                             f"west in {FED_UFDS_DEADLINE_S:.0f}s ({rec})")
+        time.sleep(0.25)
+    wire = make_query(name, Type.A, qid=4242, rd=True).encode()
+    got = ask_once(port, wire)
+    want = ask_once(west_port, wire, host="127.0.0.2")
+    errors = []
+    if got is None or want is None:
+        errors.append(f"ufds: no answer for {name} (through east: "
+                      f"{got is not None}, from west: {want is not None})")
+    elif not same_but_id_ra(got, want):
+        errors.append(f"ufds: the forwarded answer for {name} differs "
+                      "from west's own")
+    return {"routed_s": time.monotonic() - t0, "datacenters": dcs,
+            "errors": errors}
+
+
+def dark_stream(port: int, west, local, foreign, duration: float):
+    """``tools/federation_smoke.py``'s stream: local and foreign names in
+    turn, one at a time, each on a fresh socket with no retry, and both
+    west processes SIGKILLed at ``FED_DARK_AT`` of it."""
+    from binder_torch.dns import Type, make_query
+    lat = {"local_pre": [], "local_post": [], "foreign_pre": [],
+           "foreign_post": []}
+    counts = {"queries": 0, "local_ok": 0, "foreign_ok": 0,
+              "foreign_stale": 0, "timeouts": 0}
+    errors = []
+    dark_at = first_stale = None
+    t0 = time.monotonic()
+    t_dark, t_end = t0 + duration * FED_DARK_AT, t0 + duration
+    i = 0
+    while time.monotonic() < t_end:
+        if dark_at is None and time.monotonic() >= t_dark:
+            # the incident: the whole west group at once
+            for proc in west:
+                proc.kill()
+            for proc in west:
+                proc.wait(timeout=10)
+            dark_at = time.monotonic()
+        i += 1
+        is_foreign = i % 2 == 0
+        names = foreign if is_foreign else local
+        name, addr = names[(i // 2) % len(names)]
+        wire = make_query(name, Type.A, qid=(i % 0xFFFF) + 1,
+                          rd=True).encode()
+        counts["queries"] += 1
+        start = time.perf_counter()
+        data = ask_once(port, wire)
+        elapsed = time.perf_counter() - start
+        when = "pre" if dark_at is None else "post"
+        why = answer_errors(
+            f"{'foreign' if is_foreign else 'local'} {when}-dark", name,
+            data, addr,
+            FED_TTL_CLAMP_S if is_foreign and dark_at is not None
+            else None)
+        if data is None:
+            counts["timeouts"] += 1
+        if why:
+            errors += why
+        elif is_foreign:
+            counts["foreign_ok"] += 1
+            if dark_at is not None:
+                counts["foreign_stale"] += 1
+                if first_stale is None:
+                    first_stale = time.monotonic() - dark_at
+            lat[f"foreign_{when}"].append(elapsed)
+        else:
+            counts["local_ok"] += 1
+            lat[f"local_{when}"].append(elapsed)
+        time.sleep(duration / 1500.0)
+    return lat, counts, errors, dark_at, first_stale
+
+
+def percentile_s(xs, p: float) -> float:
+    """``federation_smoke._percentile``: the sample at rank ``n * p``."""
+    if not xs:
+        return 0.0
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * p))]
+
+
+def render_bstat(snapshot) -> str:
+    """``bin/bstat``'s rendering of a ``/status`` snapshot."""
+    import importlib.machinery
+    import importlib.util
+    loader = importlib.machinery.SourceFileLoader(
+        "bstat", os.path.join(ROOT, "bin", "bstat"))
+    spec = importlib.util.spec_from_loader("bstat", loader)
+    bstat = importlib.util.module_from_spec(spec)
+    loader.exec_module(bstat)
+    return bstat.render(snapshot)
+
+
+def federation_phase(hosts: int = HOSTS, duration: float = FED_SECONDS,
+                     working: int = FED_WORKING_SET, native=None) -> dict:
+    """Port of ``tools/federation_smoke.py`` in processes at the serve
+    phase's zone: (b) east discovering west over LDAPS, then (a) west
+    going dark under east's stream; returns the report."""
+    from binder_torch.dns import Message, Rcode, Type, make_query
+    from tools.lint import validate_federation_metrics
+    t_phase = time.monotonic()
+    rng = random.Random(SEED + 7)
+    racks = max(1, min(1024, hosts // 512))
+    picks = rng.sample(range(hosts), working + 1)
+    never = host_name(picks.pop(), racks, "west")
+    foreign = [(host_name(i, racks, "west"), host_addr(i)) for i in picks]
+    local = [(host_name(i, racks, "east"), host_addr(i))
+             for i in rng.sample(range(hosts), working)]
+    departures = [d.format(hosts=hosts, working=working)
+                  for d in FED_DEPARTURES]
+    report = {"zone_names_a_dc": hosts, "duration_s": duration,
+              "departures": departures}
+    for d in departures:
+        log("federation departure: " + d)
+    errors = []
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fed_") as tmp:
+        logs = {k: os.path.join(tmp, f"{k}.log")
+                for k in ("west0", "west1", "east", "ufds")}
+        try:
+            ca, cert, key = make_pki(tmp)
+            t0 = time.monotonic()
+            west_cfg = write_config(tmp, hosts, name="west", dc="west",
+                                    host="127.0.0.2", subtree="west")
+            west, west_ports = boot_all(
+                [(west_cfg, logs[f"west{k}"], f"federation: west{k}")
+                 for k in range(FED_WEST_PEERS)], procs)
+            peers = [f"127.0.0.2:{p}" for p in west_ports]
+            entries = {
+                f"uuid=w{k}, datacenter=west, region={FED_REGION}, "
+                "o=smartdc": {"objectclass": ["resolver"],
+                              "datacenter": ["west"], "ip": [peer]}
+                for k, peer in enumerate(peers)}
+            with LdapThread(entries, cert, key) as ldap:
+                east_cfg = write_config(
+                    tmp, hosts, name="east", dc="east", subtree="east",
+                    fixture={
+                        "/dcs/east": {"zones": ["east"], "peers": []},
+                        "/dcs/west": {"zones": ["west"], "peers": peers}},
+                    federation={"staleTtlClampSeconds": FED_TTL_CLAMP_S,
+                                "cacheSize": 4096},
+                    admission=FED_ADMISSION)
+                ufds_cfg = write_config(
+                    tmp, hosts, name="ufds", dc="east", subtree="east",
+                    fixture=UFDS_FIXTURE,
+                    recursion={"regionName": FED_REGION, "ufds": {
+                        "url": f"ldaps://ufds.{DOMAIN}:{ldap.port}",
+                        "bindDN": "cn=root", "bindPassword": "secret",
+                        "ca": ca}},
+                    admission=FED_ADMISSION)
+                booted = []
+                try:
+                    _, (port, uport) = boot_all(
+                        [(east_cfg, logs["east"], "federation: east"),
+                         (ufds_cfg, logs["ufds"],
+                          "federation: east (ufds)")], booted)
+                    report["boot_s"] = time.monotonic() - t0
+                    # (b) UFDS over LDAPS
+                    leg_b = ufds_leg(uport, metrics_port(logs["ufds"]),
+                                     west_ports[0], foreign[0][0])
+                finally:
+                    procs += booted
+                    # the binder goes before the LDAP server does (one
+                    # retrying TLS connects can hang the server's close)
+                    if len(booted) > 1:
+                        reap(booted[1])
+            report["ufds"] = leg_b
+            report["ufds"]["ldap_binds"] = ldap.bind_count
+            report["ufds"]["ldap_searches"] = ldap.search_count
+            errors += leg_b.pop("errors")
+
+            # (a) the dark DC
+            mport = metrics_port(logs["east"])
+            report.update(settle_zone(mport, "federation"))
+            sample = rng.sample(foreign, min(FED_PARITY_SAMPLE, working))
+            differ = []
+            for k, (name, _) in enumerate(sample):
+                wire = make_query(name, Type.A, qid=700 + k,
+                                  rd=True).encode()
+                a = ask_once(port, wire)
+                b = ask_once(west_ports[k % FED_WEST_PEERS], wire,
+                             host="127.0.0.2")
+                if a is None or b is None or not same_but_id_ra(a, b):
+                    differ.append(name)
+            report["parity"] = {"sampled": len(sample),
+                                "differ": len(differ)}
+            if differ:
+                errors.append(f"{len(differ)} forwarded answer(s) differ "
+                              f"from west's own, e.g. {differ[:3]}")
+            t0 = time.monotonic()
+            warm = ask_all(port, [
+                make_query(name, Type.A, qid=(k % 0xFFFF) + 1,
+                           rd=True).encode()
+                for k, (name, _) in enumerate(foreign)])
+            report["warm_s"] = time.monotonic() - t0
+            for (name, addr), data in zip(foreign, warm):
+                errors += answer_errors("warm", name, data, addr)
+            before = native_reading(mport)
+            lat, counts, stream_errors, dark_at, first_stale = \
+                dark_stream(port, west, local, foreign, duration)
+            errors += stream_errors
+            report["stream"] = counts
+            if dark_at is None or first_stale is None:
+                errors.append("the incident never ran, or no stale "
+                              "answer followed it")
+            t0 = time.monotonic()
+            after_dark = ask_all(port, [
+                make_query(name, Type.A, qid=(k % 0xFFFF) + 1,
+                           rd=True).encode()
+                for k, (name, _) in enumerate(foreign)])
+            report["sweep_s"] = time.monotonic() - t0
+            swept = 0
+            for (name, addr), data in zip(foreign, after_dark):
+                why = answer_errors("post-dark sweep", name, data, addr,
+                                    FED_TTL_CLAMP_S)
+                errors += why
+                swept += not why
+            report["post_dark_sweep_ok"] = swept
+            miss = ask_once(port, make_query(never, Type.A, qid=9999,
+                                             rd=True).encode())
+            miss_rcode = None if miss is None else \
+                Message.decode(miss).rcode
+            report["never_seen_rcode"] = miss_rcode
+            if miss_rcode != Rcode.REFUSED:
+                errors.append(f"never-seen {never} got rcode "
+                              f"{miss_rcode}, want REFUSED")
+            pre50 = percentile_s(lat["local_pre"], 0.50)
+            post50 = percentile_s(lat["local_post"], 0.50)
+            post99 = percentile_s(lat["local_post"], 0.99)
+            report.update({
+                "local_p50_ms": {"pre": pre50 * 1e3,
+                                 "post_dark": post50 * 1e3},
+                "local_p99_ms": {"pre": percentile_s(
+                    lat["local_pre"], 0.99) * 1e3,
+                    "post_dark": post99 * 1e3},
+                "foreign_p50_ms": {
+                    "pre": percentile_s(lat["foreign_pre"], 0.5) * 1e3,
+                    "post_dark": percentile_s(lat["foreign_post"],
+                                              0.5) * 1e3},
+                "first_stale_ms": (None if first_stale is None
+                                   else first_stale * 1e3)})
+            if post50 > max(4 * pre50, pre50 + 0.005):
+                errors.append(f"local p50 {pre50 * 1e3}ms -> "
+                              f"{post50 * 1e3}ms while west was dark")
+            if post99 > FED_LOCAL_P99_S:
+                errors.append(f"local p99 {post99 * 1e3}ms post-dark")
+            if first_stale is not None and first_stale > FED_FIRST_STALE_S:
+                errors.append(f"first stale answer {first_stale}s after "
+                              "dark")
+
+            text = http_json(mport, "/metrics")
+            errors += [f"federation metrics: {e}"
+                       for e in validate_federation_metrics(text)[:3]]
+            report["stale_served_total"] = metric_sum(
+                text, "binder_federation_foreign_stale_served_total")
+            status = http_json(mport, "/status")
+            fed = status.get("federation") or {}
+            report["dark"] = fed.get("dark")
+            report["convergence_ms"] = (
+                None if fed.get("last_convergence_seconds") is None
+                else fed["last_convergence_seconds"] * 1e3)
+            if fed.get("dark") != ["west"]:
+                errors.append(f"/status federation.dark is "
+                              f"{fed.get('dark')}, want ['west']")
+            if report["convergence_ms"] is None:
+                errors.append("/status federation has no "
+                              "last_convergence_seconds")
+            rendered = render_bstat(status)
+            if "federation:" not in rendered or "(DARK)" not in rendered:
+                errors.append("bstat does not render the federation "
+                              "line with (DARK)")
+            kinds = (status.get("flight_recorder") or {}).get(
+                "by_type") or {}
+            report["flight_events"] = {
+                k: kinds.get(k, 0)
+                for k in ("dc-join", "dc-dark", "federation-failover")}
+            errors += [f"missing flight event {k}"
+                       for k, n in report["flight_events"].items() if not n]
+            after = native_reading(mport)
+            report["c_lane"] = native_delta(before, after)
+            errors += native_gate("federation", before, after)
+        except PhaseError:
+            for name, path in logs.items():
+                if os.path.exists(path):
+                    tail = read_bytes(path)[-2000:].decode(
+                        errors="replace")
+                    log(f"--- federation {name}.log (last 2000 bytes) "
+                        f"---\n{tail}")
+            raise
+        finally:
+            for proc in procs:
+                reap(proc)
+    left = descendants(os.getpid())
+    report["phase_s"] = time.monotonic() - t_phase
+    report["errors"] = len(errors)
+    log(json.dumps({"federation": report}))
+    if native is not None:
+        native["federation"] = report["c_lane"]
+    check_phase("federation", errors, left)
+    return report
+
+
+# -- phase 12: verify -------------------------------------------------
+
+#: the in-process half of ``tools/verify_smoke.py``: the audit interval,
+#: the soak and the RSS bound (``verify_smoke.py:65``); the subprocess
+#: half (``skew-replica`` against the replica digest) runs in chaos (a)
+VERIFY_SECONDS = 10.0
+VERIFY_AUDIT_INTERVAL_S = 0.05
+VERIFY_RSS_GROWTH_KB = 96 * 1024
+#: churn names: each owns a /24, so address moves never collide across
+#: names (ptr-coherence stays clean)
+VERIFY_CHURN = 4
+VERIFY_INVARIANTS = ("ptr-coherence", "compiled-bytes", "dangling-srv",
+                     "stale-epoch")
+VERIFY_STAGES = ("mirror-apply", "precompile-render", "compiled-install")
+VERIFY_DEPARTURES = (
+    "zone: the serve phase's {hosts} hosts, where the reference smoke "
+    "serves 15 names",
+    "lanes: the C lane resident and serving (the reference smoke stands "
+    "it down with query_log=True)",
+    "soak: {duration} s after the zone fill and the precompile seed "
+    "settled (make ci's trim gives the reference smoke 5 s)")
+
+
+def verify_churn(i: int):
+    """Churn write ``i``: its path and its record."""
+    return (f"/com/foo/vchurn/c{i % VERIFY_CHURN}",
+            {"type": "host", "host": {
+                "address": f"10.60.{i % VERIFY_CHURN + 1}.{i % 250 + 1}"}})
+
+
+async def ask_async(port: int, wire: bytes, timeout: float = 2.0):
+    """One UDP query from this process's event loop; the reply."""
+    loop = asyncio.get_running_loop()
+    fut = loop.create_future()
+
+    class Proto(asyncio.DatagramProtocol):
+        def connection_made(self, transport):
+            transport.sendto(wire)
+
+        def datagram_received(self, data, addr):
+            if not fut.done():
+                fut.set_result(data)
+
+    transport, _ = await loop.create_datagram_endpoint(
+        Proto, remote_addr=("127.0.0.1", port))
+    try:
+        return await asyncio.wait_for(fut, timeout)
+    finally:
+        transport.close()
+
+
+def inproc_reading(server) -> dict:
+    """``native_reading`` for a server in this process."""
+    from binder_torch import _binderfastio
+    text = server.collector.expose()
+    stats = _binderfastio.fastpath_stats(server._fastpath)
+    out = {f: metric_sum(text, f) for f in NATIVE_GAUGES}
+    out["c_zone_hits"] = stats["zone_hits"]
+    out["c_cache_hits"] = stats["hits"]
+    return out
+
+
+async def verify_settle(server, deadline_s: float = SETTLE_DEADLINE_S):
+    """Wait until the zone fill and the precompile seed are done."""
+    t0 = time.monotonic()
+    last = None
+    while True:
+        entries = inproc_reading(server)["binder_zone_entries"]
+        seed = server._precompiler._seed_task
+        if (entries > 0 and entries == last
+                and (seed is None or seed.done())):
+            return {"zone_entries": entries,
+                    "settle_s": time.monotonic() - t0}
+        if time.monotonic() - t0 > deadline_s:
+            raise PhaseError(f"verify: the zone fill and seed did not "
+                             f"settle in {deadline_s:.0f}s")
+        last = entries
+        await asyncio.sleep(SETTLE_EVERY_S)
+
+
+async def verify_run(hosts: int, duration: float) -> dict:
+    """The clean soak, then the scripted corruption and one audit cycle,
+    against an in-process server at ``hosts`` names."""
+    from binder_torch.chaos import ChaosDriver, FaultPlan
+    from binder_torch.dns import Message, Rcode, Type, make_query
+    from binder_torch.dns.wire import WireError
+    from binder_torch.introspect import FlightRecorder, Introspector
+    from binder_torch.metrics.collector import MetricsCollector
+    from binder_torch.server import BinderServer
+    from binder_torch.store import FakeStore, MirrorCache
+    from binder_torch.store.fake import load_state, populate_synthetic
+    from tools.lint import validate_status_snapshot, validate_verify_metrics
+    errors = []
+    report = {"zone_names": hosts, "duration_s": duration,
+              "departures": [d.format(hosts=hosts, duration=duration)
+                             for d in VERIFY_DEPARTURES]}
+    collector = MetricsCollector()
+    recorder = FlightRecorder(capacity=1024)
+    store = FakeStore(recorder=recorder)
+    fixture = zone_fixture()
+    fixture.update(dict(verify_churn(i) for i in range(VERIFY_CHURN)))
+    load_state(store, fixture)
+    populate_synthetic(store, DOMAIN, hosts=hosts)
+    cache = MirrorCache(store, DOMAIN, collector=collector,
+                        recorder=recorder)
+    store.start_session()
+    server = BinderServer(
+        zk_cache=cache, dns_domain=DOMAIN, datacenter_name="dc0",
+        host="127.0.0.1", port=0, collector=collector, query_log=False,
+        flight_recorder=recorder, answer_precompile=True,
+        verify={"auditIntervalSeconds": VERIFY_AUDIT_INTERVAL_S},
+        rrl={"allowlist": ["127.0.0.0/8"]})
+    t0 = time.monotonic()
+    await server.start()
+    try:
+        if server._fastpath is None:
+            raise PhaseError("verify: the server has no C lane")
+        intro = Introspector(server=server, recorder=recorder,
+                             name="chip-smoke-verify")
+        intro.set_loop(asyncio.get_running_loop())
+        vf = server._verify
+        report.update(await verify_settle(server))
+        report["boot_s"] = time.monotonic() - t0
+        racks = max(1, min(1024, hosts // 512))
+        rng = random.Random(SEED + 8)
+        before = inproc_reading(server)
+        rss0 = rss_kb(os.getpid())
+        checks0 = sum(vf.checks.values())
+
+        # 1. the clean soak: churn and queries, no violation
+        loop = asyncio.get_running_loop()
+        t_end = loop.time() + duration
+        snapshot_errs = []
+        i = queries = 0
+        while loop.time() < t_end:
+            i += 1
+            path, rec = verify_churn(i)
+            store.put_json(path, rec)
+            h = rng.randrange(hosts)
+            asks = [(host_name(h, racks), Type.A, host_addr(h))]
+            if i % 5 == 0:
+                asks.append((f"c{i % VERIFY_CHURN}.vchurn.{DOMAIN}",
+                             Type.A, None))
+            if i % 7 == 0:
+                asks.append((f"svc.{DOMAIN}", Type.A, None))
+            for k, (name, qtype, addr) in enumerate(asks):
+                msg = Message.decode(await ask_async(
+                    server.udp_port, make_query(
+                        name, qtype, qid=(i * 4 + k) & 0xFFFF).encode()))
+                queries += 1
+                if msg.rcode != Rcode.NOERROR or not msg.answers or (
+                        addr and msg.answers[0].address != addr):
+                    errors.append(f"soak: bad answer for {name}: rcode "
+                                  f"{msg.rcode}")
+            if i % 31 == 0:
+                snapshot_errs += validate_status_snapshot(intro.snapshot())
+            await asyncio.sleep(duration / 400.0)
+        report["soak"] = {"mutations": i, "queries": queries}
+        errors += [f"status snapshot: {e}" for e in snapshot_errs[:3]]
+        # finish the pass in flight: at 100,000 names the background
+        # audit does not complete one inside the soak
+        t1 = time.perf_counter()
+        vf.audit_cycle()
+        report["soak_audit_cycle_s"] = time.perf_counter() - t1
+        report["audit_passes_after_soak"] = vf.audit_passes
+        fired = {k: v for k, v in vf.violations.items() if v}
+        if fired:
+            errors.append(f"the clean soak fired violations: {fired}")
+        if vf._audit_work or vf.audit_passes < 1:
+            errors.append(f"no full audit pass ({vf.audit_passes} "
+                          f"started, {len(vf._audit_work)} item(s) left)")
+        for inv in VERIFY_INVARIANTS:
+            if not vf.checks[inv]:
+                errors.append(f"invariant {inv} never checked")
+        prop = vf.tracer.introspect()
+        report["propagation"] = {
+            "observed": prop["observed"],
+            "stages": {s: prop["stages"][s]["count"]
+                       for s in prop["stages"]}}
+        for stage in VERIFY_STAGES:
+            if not prop["stages"][stage]["count"]:
+                errors.append(f"propagation stage {stage} never observed "
+                              "under churn")
+        errors += [f"verify metrics: {e}"
+                   for e in validate_verify_metrics(collector.expose())[:3]]
+
+        # 2. the scripted corruption, detected within one audit cycle
+        ckey = next(iter(server.answer_cache._compiled), None)
+        if ckey is None:
+            raise PhaseError("verify: no compiled entries to corrupt")
+        # corrupt-answer flips a byte of the entry's classic (no EDNS)
+        # wire; ask in both postures before and after
+        probes = {posture: make_query(ckey[1], ckey[0], qid=4321,
+                                      edns_payload=payload).encode()
+                  for posture, payload in (("classic", None),
+                                           ("edns", 1232))}
+        good = {p: await ask_async(server.udp_port, w)
+                for p, w in probes.items()}
+        plan = FaultPlan(seed=3).at(0.05, "corrupt-answer") \
+            .at(0.15, "drop-reverse")
+        await ChaosDriver(plan, store=store, verify_target=server,
+                          recorder=recorder).run()
+        # what went on serving the corrupted name: the C zone or answer
+        # table, or Python; compared by record set, as the C lane
+        # rotates
+        report["corrupted"] = {"qname": ckey[1], "qtype": ckey[0]}
+        for posture, wire in probes.items():
+            mark = inproc_reading(server)
+            served = await ask_async(server.udp_port, wire)
+            seen = inproc_reading(server)
+            try:
+                after = ("the good records"
+                         if record_sets(served) == record_sets(good[posture])
+                         else "other records")
+            except WireError:
+                after = "an undecodable reply"
+            report["corrupted"][posture] = {
+                "served": after,
+                "by_the_c_lane": (seen["c_zone_hits"] + seen["c_cache_hits"]
+                                  > mark["c_zone_hits"]
+                                  + mark["c_cache_hits"])}
+        pending = len(vf._audit_work)
+        checks1 = sum(vf.checks.values())
+        t1 = time.perf_counter()
+        vf.audit_cycle()
+        cycle_s = time.perf_counter() - t1
+        report["audit_cycle"] = {
+            "seconds": cycle_s, "items_in_flight": pending,
+            "items_left": len(vf._audit_work),
+            "checks": sum(vf.checks.values()) - checks1,
+            "checks_per_s": (sum(vf.checks.values()) - checks1) / cycle_s,
+            "mirror_names": len(cache.nodes),
+            "reverse_entries": len(cache.rev_lookup),
+            "compiled_entries": len(server.answer_cache._compiled)}
+        if vf._audit_work:
+            errors.append(f"one audit cycle stopped at its slice cap with "
+                          f"{len(vf._audit_work)} item(s) left")
+        report["violations"] = {k: v for k, v in vf.violations.items() if v}
+        for inv, action in (("compiled-bytes", "corrupt-answer"),
+                            ("ptr-coherence", "drop-reverse")):
+            if vf.violations[inv] < 1:
+                errors.append(f"{action} not detected within one audit "
+                              "cycle")
+        # each violation shows three ways: the flight event, the
+        # counter and /status
+        if recorder.by_type.get("verify-violation", 0) < 2:
+            errors.append("violations missing from the flight recorder")
+        text = collector.expose()
+        for inv in ("compiled-bytes", "ptr-coherence"):
+            if series_value(text, "binder_verify_violations_total",
+                            f'invariant="{inv}"') < 1:
+                errors.append(f"binder_verify_violations_total for {inv} "
+                              "did not advance")
+        snap = intro.snapshot()
+        recent = {v["invariant"]
+                  for v in snap["verify"]["recent_violations"]}
+        if not {"compiled-bytes", "ptr-coherence"} <= recent:
+            errors.append(f"/status recent_violations has only "
+                          f"{sorted(recent)}")
+        errors += [f"status snapshot mid-violation: {e}"
+                   for e in validate_status_snapshot(snap)[:3]]
+        report["rss_growth_kb"] = rss_kb(os.getpid()) - rss0
+        if report["rss_growth_kb"] > VERIFY_RSS_GROWTH_KB:
+            errors.append(f"RSS grew {report['rss_growth_kb']} kB (limit "
+                          f"{VERIFY_RSS_GROWTH_KB})")
+        report["checks"] = dict(vf.checks)
+        report["checks_total"] = sum(vf.checks.values()) - checks0
+        report["c_lane"] = native_delta(before, inproc_reading(server))
+        errors += native_gate("verify", before, inproc_reading(server))
+    finally:
+        await server.stop()
+    report["errors"] = errors
+    return report
+
+
+def verify_phase(hosts: int = HOSTS, duration: float = VERIFY_SECONDS,
+                 native=None) -> dict:
+    """Port of the in-process half of ``tools/verify_smoke.py`` at the
+    serve phase's zone; returns the report."""
+    import gc
+    t_phase = time.monotonic()
+    report = asyncio.run(verify_run(hosts, duration))
+    for d in report["departures"]:
+        log("verify departure: " + d)
+    gc.collect()
+    errors = report.pop("errors")
+    report["phase_s"] = time.monotonic() - t_phase
+    report["errors"] = len(errors)
+    log(json.dumps({"verify": report}))
+    if native is not None:
+        native["verify"] = report["c_lane"]
+    check_phase("verify", errors, descendants(os.getpid()))
+    return report
+
+
+# -- phases 13 and 14: tcp, conformance -------------------------------
+
+#: ``tools/tcp_smoke.py``'s write-buffer cap (``tcp_smoke.py:130``),
+#: and how long a counter or the connection table may take to settle
+TCP_WRITE_BUFFER = 4096
+TCP_SETTLE_S = 5.0
+TCP_PIPELINE = 8
+TCP_SLOW_FRAMES = 20_000
+TCP_DEPARTURES = (
+    "server: python -m binder_torch.main at the serve phase's zone with "
+    "its C lane resident, read through /metrics and /status, where the "
+    "reference smoke reads an in-process server's counters",
+    "slow reader: big.foo.com (64 addresses) where the reference pumps "
+    "a 40-member service")
+#: the RFC golden byte-vectors of ``tests/test_conformance.py``
+#: (``TestGoldenVectors``), hand-assembled from RFC 1035, 2782 and 6891
+GOLDEN = {
+    "query_a": (  # RFC 1035 4.1: id 0x1234, RD, example.com A IN
+        "1234" "0100" "0001" "0000" "0000" "0000"
+        "07" "6578616d706c65" "03" "636f6d" "00" "0001" "0001"),
+    "response_a": (  # answer name a pointer to the question (0xc00c)
+        "1234" "8580" "0001" "0001" "0000" "0000"
+        "07" "6578616d706c65" "03" "636f6d" "00" "0001" "0001"
+        "c00c" "0001" "0001" "0000012c" "0004" "5db8d822"),
+    "response_srv": (  # RFC 2782, target uncompressed
+        "0007" "8400" "0001" "0001" "0000" "0000"
+        "035f7067" "045f746370" "03737663" "03666f6f" "03636f6d" "00"
+        "0021" "0001" "c00c" "0021" "0001" "0000001e" "0017"
+        "000a" "0014" "1538"
+        "036c6230" "03737663" "03666f6f" "03636f6d" "00"),
+    "response_ptr": (  # RFC 1035 3.3.12: 3.2.1.10.in-addr.arpa
+        "0009" "8400" "0001" "0001" "0000" "0000"
+        "0133" "0132" "0131" "023130" "07696e2d61646472" "046172706100"
+        "000c" "0001" "c00c" "000c" "0001" "0000001e" "000d"
+        "0377656203666f6f03636f6d00"),
+    "response_soa": (  # RFC 1035 3.3.13 in the authority section
+        "000b" "8400" "0001" "0000" "0001" "0000"
+        "03666f6f03636f6d00" "0001" "0001"
+        "c00c" "0006" "0001" "00000e10" "0029"
+        "026e7303666f6f03636f6d00" "07616461646d696e00"
+        "78512ec6" "00000e10" "00000384" "00093a80" "0000003c"),
+    "query_edns": (  # RFC 6891: OPT with payload 1232
+        "0042" "0000" "0001" "0000" "0000" "0001"
+        "0377656203666f6f03636f6d00" "0001" "0001"
+        "00" "0029" "04d0" "00000000" "0000"),
+}
+CONFORMANCE_DEPARTURE = (
+    "route: glibc's res_query through _res pointed at the server's "
+    "ephemeral port (binder_torch.cli.libresolv_probe --server), where "
+    "the reference rewrites /etc/resolv.conf and binds port 53 as root")
+#: the shipped fixture's service (etc/fixture.json)
+FIXTURE_SRV = (f"_http._tcp.svc.{DOMAIN}", 8080,
+               {f"lb0.svc.{DOMAIN}": "10.0.1.1",
+                f"lb1.svc.{DOMAIN}": "10.0.1.2"})
+#: a host record without a ttl is served with this one (the reference's
+#: ``TestLibresolvConformance`` reads it through glibc)
+HOST_TTL = 30
+
+
+def golden_errors():
+    """``TestGoldenVectors``'s assertions through ``binder_torch.dns``."""
+    from binder_torch.dns import (ARecord, Message, OPTRecord, PTRRecord,
+                                  Rcode, SOARecord, SRVRecord, Type,
+                                  make_query)
+    g = {k: bytes.fromhex(v) for k, v in GOLDEN.items()}
+    errors = []
+
+    def expect(what, ok):
+        if not ok:
+            errors.append(f"golden {what}")
+
+    expect("query encode", make_query("example.com", Type.A, qid=0x1234,
+                                      rd=True, edns_payload=None).encode()
+           == g["query_a"])
+    expect("mixed-case query encode", make_query(
+        "ExAmPlE.CoM", Type.A, qid=0x1234, rd=True,
+        edns_payload=None).encode() == g["query_a"])
+    m = Message.decode(g["query_a"])
+    expect("query decode", (m.id, m.qr, m.rd, m.opcode) == (
+        0x1234, False, True, 0) and [(q.name, q.qtype, q.qclass)
+                                     for q in m.questions]
+        == [("example.com", 1, 1)]
+        and not (m.answers or m.authorities or m.additionals))
+    m = Message.decode(g["response_a"])
+    a = m.answers[0] if len(m.answers) == 1 else None
+    expect("compressed A decode", m.qr and m.aa and m.ra
+           and m.rcode == Rcode.NOERROR and isinstance(a, ARecord)
+           and (a.name, a.ttl, a.address) == ("example.com", 300,
+                                              "93.184.216.34"))
+    again = Message.decode(m.encode())
+    expect("A re-encode round trip", again.answers == m.answers
+           and again.questions == m.questions
+           and (again.id, again.rcode, again.aa) == (m.id, m.rcode, m.aa))
+    m = Message.decode(g["response_srv"])
+    srv = m.answers[0] if len(m.answers) == 1 else None
+    expect("SRV decode", isinstance(srv, SRVRecord)
+           and (srv.name, srv.priority, srv.weight, srv.port, srv.target,
+                srv.ttl) == ("_pg._tcp.svc.foo.com", 10, 20, 5432,
+                             "lb0.svc.foo.com", 30))
+    out = Message(id=7, qr=True, aa=True)
+    out.questions = list(m.questions)
+    out.answers = [SRVRecord(name="_pg._tcp.svc.foo.com", ttl=30,
+                             priority=10, weight=20, port=5432,
+                             target="lb0.svc.foo.com")]
+    expect("SRV target uncompressed", bytes.fromhex(
+        "036c62300373766303666f6f03636f6d00") in out.encode())
+    m = Message.decode(g["response_ptr"])
+    ptr = m.answers[0] if len(m.answers) == 1 else None
+    expect("PTR decode", isinstance(ptr, PTRRecord)
+           and (ptr.name, ptr.target) == ("3.2.1.10.in-addr.arpa",
+                                          "web.foo.com"))
+    m = Message.decode(g["response_soa"])
+    soa = m.authorities[0] if len(m.authorities) == 1 else None
+    expect("SOA decode", isinstance(soa, SOARecord)
+           and (soa.mname, soa.rname, soa.serial, soa.refresh, soa.retry,
+                soa.expire, soa.minimum) == (
+                    "ns.foo.com", "adadmin", 0x78512EC6, 3600, 900,
+                    604800, 60))
+    expect("EDNS query encode", make_query(
+        "web.foo.com", Type.A, qid=0x42, edns_payload=1232).encode()
+        == g["query_edns"])
+    opt = Message.decode(g["query_edns"]).additionals
+    expect("EDNS query decode", len(opt) == 1
+           and isinstance(opt[0], OPTRecord)
+           and opt[0].udp_payload_size == 1232 and opt[0].version == 0
+           and not opt[0].dnssec_ok and not opt[0].has_options)
+    return errors
+
+
+def tcp_status(mport: int) -> dict:
+    return http_json(mport, "/status")["tcp"]
+
+
+def tcp_wait(mport: int, pred) -> dict:
+    """The ``/status`` tcp section once ``pred`` holds of it, or the
+    last one read after ``TCP_SETTLE_S``."""
+    deadline = time.monotonic() + TCP_SETTLE_S
+    while True:
+        tcp = tcp_status(mport)
+        if pred(tcp) or time.monotonic() > deadline:
+            return tcp
+        time.sleep(0.05)
+
+
+def tcp_oneshot(port: int, wire: bytes):
+    """Connect, one query, read the reply, close; the reply decoded."""
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=REPLY_STALL_S) as s:
+        return tcp_ask(s, wire)
+
+
+def tcp_leg(port: int, mport: int, name: str) -> dict:
+    """``tools/tcp_smoke.py``'s five clients against a live server, each
+    judged by the ``/status`` tcp section."""
+    from binder_torch.dns import Message, Rcode, Type, make_query
+    from tools.lint import validate_status_snapshot, validate_tcp_metrics
+    errors = []
+    wire = make_query(name, Type.A, qid=1).encode()
+    s0 = tcp_status(mport)
+
+    # 1. one-shot: the accept fast path serves it and counts the close
+    r = tcp_oneshot(port, wire)
+    if r.rcode != Rcode.NOERROR:
+        errors.append(f"one-shot rcode {r.rcode}")
+    s1 = tcp_wait(mport, lambda t: t["oneshot_closes"]
+                  > s0["oneshot_closes"])
+    if not (s1["fast_serves"] > s0["fast_serves"]
+            and s1["oneshot_closes"] > s0["oneshot_closes"]):
+        errors.append(f"the accept fast path did not serve and close "
+                      f"({s1})")
+    if s1["promotions"] != s0["promotions"]:
+        errors.append("a one-shot connection was promoted")
+
+    # 2. pipelined bursts: the second promotes, a burst coalesces
+    got = 0
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=REPLY_STALL_S) as s:
+        for b in range(2):
+            block = b"".join(
+                struct.pack(">H", len(w)) + w for w in (
+                    make_query(name, Type.A,
+                               qid=b * TCP_PIPELINE + k + 1).encode()
+                    for k in range(TCP_PIPELINE)))
+            s.sendall(block)
+            for _ in range(TCP_PIPELINE):
+                n = struct.unpack(">H", _recv_exact(s, 2))[0]
+                got += Message.decode(_recv_exact(s, n)).rcode \
+                    == Rcode.NOERROR
+    if got != 2 * TCP_PIPELINE:
+        errors.append(f"pipelined bursts: {got} of {2 * TCP_PIPELINE} "
+                      "answered NOERROR")
+    s2 = tcp_wait(mport, lambda t: t["promotions"] > s1["promotions"])
+    if not s2["promotions"] > s1["promotions"]:
+        errors.append("the second burst did not promote")
+    if not s2["coalesced_writes"] > s1["coalesced_writes"]:
+        errors.append("the burst's responses were not coalesced")
+
+    # 3. a slow reader: disconnected at the cap while others are served
+    big = make_query(f"big.{DOMAIN}", Type.A, qid=1,
+                     edns_payload=4096).encode()
+    frame = struct.pack(">H", len(big)) + big
+    aborted = False
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as raw:
+        raw.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4096)
+        raw.settimeout(REPLY_STALL_S)
+        raw.connect(("127.0.0.1", port))
+        try:
+            for k in range(TCP_SLOW_FRAMES):
+                raw.sendall(frame)
+                if k == 64:
+                    # another client, served while this one is stuck
+                    r = tcp_oneshot(port, wire)
+                    if r.rcode != Rcode.NOERROR:
+                        errors.append("a client beside the slow reader "
+                                      f"got rcode {r.rcode}")
+        except socket.timeout:
+            errors.append("the slow reader's sends stalled and it was "
+                          "never disconnected")
+        except OSError:
+            aborted = True
+    s3 = tcp_wait(mport, lambda t: t["slow_reader_drops"]
+                  > s2["slow_reader_drops"])
+    if not aborted or not s3["slow_reader_drops"] > s2["slow_reader_drops"]:
+        errors.append(f"the slow reader was not dropped at the cap "
+                      f"(aborted {aborted}, {s3['slow_reader_drops']} "
+                      "drops)")
+    r = tcp_oneshot(port, wire)
+    if r.rcode != Rcode.NOERROR:
+        errors.append("unhealthy after the slow-reader abort")
+
+    # 4. half-close: send, SHUT_WR, and the answer still comes
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=REPLY_STALL_S) as s:
+        half = make_query(name, Type.A, qid=9).encode()
+        s.sendall(struct.pack(">H", len(half)) + half)
+        s.shutdown(socket.SHUT_WR)
+        try:
+            n = struct.unpack(">H", _recv_exact(s, 2))[0]
+            r = Message.decode(_recv_exact(s, n))
+            eof = s.recv(16)
+        except (PhaseError, OSError) as e:
+            r, eof = None, str(e)
+    if r is None or r.id != 9 or r.rcode != Rcode.NOERROR or eof != b"":
+        errors.append(f"half-close: reply {r}, then {eof!r}")
+
+    # 5. a torn frame then RST: the table returns to empty
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=REPLY_STALL_S) as s:
+        s.sendall(b"\x01\x00abc")
+        time.sleep(0.1)
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                     struct.pack("ii", 1, 0))
+    s5 = tcp_wait(mport, lambda t: t["open_conns"] == 0
+                  and t["rst_drops"] > s3["rst_drops"])
+    if s5["open_conns"] != 0:
+        errors.append(f"the connection table did not return to empty "
+                      f"({s5['open_conns']} open)")
+    if not s5["rst_drops"] > s3["rst_drops"]:
+        errors.append("the torn-frame RST was not counted")
+    r = tcp_oneshot(port, wire)
+    if r.rcode != Rcode.NOERROR:
+        errors.append("unhealthy after the torn-frame RST")
+
+    # 6. the exposition and the /status section
+    errors += [f"tcp metrics: {e}" for e in validate_tcp_metrics(
+        http_json(mport, "/metrics"))[:3]]
+    status = http_json(mport, "/status")
+    errors += [f"status: {e}"
+               for e in validate_status_snapshot(status)[:3]]
+    if status["tcp"]["max_write_buffer"] != TCP_WRITE_BUFFER:
+        errors.append(f"/status tcp max_write_buffer is "
+                      f"{status['tcp']['max_write_buffer']}")
+    return {"tcp_before": s0, "tcp_after": status["tcp"], "errors": errors}
+
+
+def probe(port: int, name: str, qtype: str):
+    """``binder_torch.cli.libresolv_probe --server`` for one question:
+    glibc's parse of the server's answer."""
+    out = subprocess.run(
+        [sys.executable, "-m", "binder_torch.cli.libresolv_probe",
+         "--server", f"127.0.0.1:{port}", name, qtype],
+        cwd=ROOT, capture_output=True, timeout=30)
+    if out.returncode != 0:
+        raise PhaseError(f"conformance: the probe exited {out.returncode} "
+                         f"for {name} {qtype}: "
+                         + out.stderr.decode(errors="replace")[-300:])
+    return json.loads(out.stdout)
+
+
+def conformance_leg(port: int, hosts: int) -> dict:
+    """glibc's resolver against the server: a host's A and its TTL, its
+    PTR, the fixture's SRV with its A additionals, and the OPT echo."""
+    from binder_torch.dns import reverse_name_for_ip
+    errors = []
+    racks = max(1, min(1024, hosts // 512))
+    i = random.Random(SEED + 9).randrange(hosts)
+    name, addr = host_name(i, racks), host_addr(i)
+    rev = reverse_name_for_ip(addr)
+    got = {"a": probe(port, name, "A"), "ptr": probe(port, rev, "PTR"),
+           "srv": probe(port, FIXTURE_SRV[0], "SRV")}
+    a = got["a"]["answers"]
+    if [(r["name"], r["type"], r["address"], r["ttl"]) for r in a] != [
+            (name, 1, addr, HOST_TTL)]:
+        errors.append(f"A {name}: glibc read {a}")
+    p = got["ptr"]["answers"]
+    if [(r["name"], r["type"], r["target"]) for r in p] != [
+            (rev, 12, name)]:
+        errors.append(f"PTR {rev}: glibc read {p}")
+    srv_name, srv_port, members = FIXTURE_SRV
+    s = got["srv"]["answers"]
+    if (sorted((r["type"], r["port"], r["priority"], r["target"])
+               for r in s)
+            != sorted((33, srv_port, 0, t) for t in members)
+            or got["srv"]["ancount"] != len(members)):
+        errors.append(f"SRV {srv_name}: glibc read {s}")
+    adds = {r["name"]: r["address"] for r in got["srv"]["additional"]
+            if r["type"] == 1}
+    if adds != members:
+        errors.append(f"SRV {srv_name} additionals: glibc read "
+                      f"{got['srv']['additional']}")
+    for k, r in got.items():
+        if r["opt"] != {"payload": 1232}:
+            errors.append(f"{k}: OPT echo {r['opt']}, want payload 1232")
+    golden = golden_errors()
+    errors += golden
+    return {"probed": {"a": name, "ptr": rev, "srv": srv_name},
+            "glibc": got, "golden_vectors": len(GOLDEN),
+            "golden_errors": len(golden), "errors": errors}
+
+
+def tcp_phase(hosts: int = HOSTS, native=None) -> dict:
+    """Port of ``tools/tcp_smoke.py`` against ``python -m
+    binder_torch.main`` at the serve phase's zone, then the conformance
+    phase against the same server; returns both reports."""
+    t_phase = time.monotonic()
+    racks = max(1, min(1024, hosts // 512))
+    name = host_name(random.Random(SEED + 10).randrange(hosts), racks)
+    for d in TCP_DEPARTURES:
+        log("tcp departure: " + d)
+    log("conformance departure: " + CONFORMANCE_DEPARTURE)
+    proc = None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tcp_") as tmp:
+        log_path = os.path.join(tmp, "server.log")
+        try:
+            t0 = time.monotonic()
+            proc, port = boot_server(
+                write_config(tmp, hosts,
+                             maxTcpWriteBuffer=TCP_WRITE_BUFFER),
+                log_path, "tcp: server")
+            boot_s = time.monotonic() - t0
+            mport = metrics_port(log_path)
+            settled = settle_zone(mport, "tcp")
+            before = native_reading(mport)
+            tcp = tcp_leg(port, mport, name)
+            tcp.update(boot_s=boot_s, **settled)
+            after = native_reading(mport)
+            tcp["c_lane"] = native_delta(before, after)
+            tcp["errors"] += native_gate("tcp", before, after)
+            t1 = time.monotonic()
+            conf = conformance_leg(port, hosts)
+            conf["phase_s"] = time.monotonic() - t1
+            conf["c_lane"] = native_delta(after, native_reading(mport))
+            if proc.poll() is not None:
+                tcp["errors"].append(f"server exited {proc.returncode}")
+        except PhaseError:
+            if os.path.exists(log_path):
+                tail = read_bytes(log_path)[-3000:].decode(errors="replace")
+                log(f"--- tcp server.log (last 3000 bytes) ---\n{tail}")
+            raise
+        finally:
+            reap(proc)
+    left = descendants(os.getpid())
+    errors = tcp.pop("errors")
+    tcp.update(phase_s=time.monotonic() - t_phase, errors=len(errors),
+               departures=list(TCP_DEPARTURES))
+    log(json.dumps({"tcp": tcp}))
+    if native is not None:
+        native["tcp"] = tcp["c_lane"]
+    check_phase("tcp", errors, left)
+    errors = conf.pop("errors")
+    conf.update(errors=len(errors), departure=CONFORMANCE_DEPARTURE)
+    log(json.dumps({"conformance": conf}))
+    if native is not None:
+        native["conformance"] = conf["c_lane"]
+    check_phase("conformance", errors, [])
+    return tcp, conf
+
+
+# -- phase 15: aggregate ----------------------------------------------
 
 
 def reference_percentile(ordered: np.ndarray, q: float) -> np.float32:
@@ -3990,7 +5222,7 @@ def aggregate_phase(torch, latencies, sharded) -> None:
     hold_aggregate(torch, aggregate, big, "lognormal 2**24+1")
 
 
-# -- phase 12: collective ---------------------------------------------
+# -- phase 16: collective ---------------------------------------------
 
 
 def collective_phase() -> None:
@@ -4029,6 +5261,9 @@ def main() -> int:
         chaos_phase(native=native)
         hostile_phase(native=native)
         population_phase(native=native)
+        federation_phase(native=native)
+        verify_phase(native=native)
+        tcp_phase(native=native)
         aggregate_phase(torch, latencies, sharded)
         collective_phase()
     except PhaseError as e:
