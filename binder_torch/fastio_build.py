@@ -21,9 +21,10 @@ path.  A failed build exits 1 with the compiler's error.
 
 Many processes may reach the first use at once (a shard supervisor
 and its workers, test workers): the build runs under an ``fcntl``
-lock, looks again for the artifact once it holds it, and compiles into
-a temporary file that ``os.replace`` moves into place, so a reader
-only ever sees a finished artifact.
+lock, looks again for the artifacts once it holds it, and compiles
+each into a temporary file that ``os.replace`` moves into place, so a
+reader only ever sees a finished artifact.  :func:`build_all` starts
+the compilers of several artifacts together under that one lock.
 
 A failed build raises :class:`NativeBuildError`, which is deliberately
 not an ``ImportError``: the serve modules fall back to the Python lane
@@ -43,7 +44,8 @@ import subprocess
 import sys
 import sysconfig
 import time
-from typing import Dict, NamedTuple, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 NATIVE_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "native")
@@ -129,36 +131,62 @@ def artifact_path(name: str) -> str:
 def build(name: str) -> Tuple[str, Optional[float]]:
     """Path of ``name``'s artifact, built first if need be, and the
     seconds the compiler took (None when it was already built)."""
-    art = ARTIFACTS[name]
-    out = artifact_path(name)
-    if os.path.exists(out):
-        return out, None
+    return build_all((name,))[name]
+
+
+def build_all(names: Iterable[str]) -> Dict[str, Tuple[str,
+                                                       Optional[float]]]:
+    """:func:`build` for each of ``names``, their compilers started
+    together; once every compiler has ended, raises the
+    :class:`NativeBuildError` of the first of ``names`` that failed
+    (the others stay built)."""
+    outs = {name: artifact_path(name) for name in names}
+    if all(os.path.exists(out) for out in outs.values()):
+        return {name: (out, None) for name, out in outs.items()}
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, ".lock"), "a") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if os.path.exists(out):          # built while we waited
-            return out, None
-        os.makedirs(os.path.dirname(out), exist_ok=True)
-        tmp = f"{out}.tmp{os.getpid()}"
-        cmd = _flags(art) + ["-o", tmp] + [
-            os.path.join(NATIVE_DIR, src) for src in art.sources]
-        t0 = time.monotonic()
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  cwd=NATIVE_DIR)
-        except OSError as e:
-            raise NativeBuildError(
-                f"cannot build {art.output}: `{' '.join(cmd)}` did not "
-                f"run: {e}") from None
-        seconds = time.monotonic() - t0
-        if proc.returncode != 0:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-            raise NativeBuildError(
-                f"cannot build {art.output}: `{' '.join(cmd)}` exited "
-                f"{proc.returncode}:\n{proc.stderr.strip()}")
-        os.replace(tmp, out)
-    return out, seconds
+        todo = [name for name, out in outs.items()
+                if not os.path.exists(out)]     # else built while we waited
+        with ThreadPoolExecutor(max(1, len(todo))) as pool:
+            jobs = {name: pool.submit(_compile, name, outs[name])
+                    for name in todo}
+        seconds, failed = {}, []
+        for name, job in jobs.items():
+            try:
+                seconds[name] = job.result()
+            except NativeBuildError as e:
+                failed.append(e)
+        if failed:
+            raise failed[0]
+    return {name: (out, seconds.get(name)) for name, out in outs.items()}
+
+
+def _compile(name: str, out: str) -> float:
+    """Compile ``name``'s artifact into ``out``; the compiler's
+    seconds."""
+    art = ARTIFACTS[name]
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.tmp{os.getpid()}"
+    cmd = _flags(art) + ["-o", tmp] + [
+        os.path.join(NATIVE_DIR, src) for src in art.sources]
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              cwd=NATIVE_DIR)
+    except OSError as e:
+        raise NativeBuildError(
+            f"cannot build {art.output}: `{' '.join(cmd)}` did not "
+            f"run: {e}") from None
+    seconds = time.monotonic() - t0
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise NativeBuildError(
+            f"cannot build {art.output}: `{' '.join(cmd)}` exited "
+            f"{proc.returncode}:\n{proc.stderr.strip()}")
+    os.replace(tmp, out)
+    return seconds
 
 
 def bin_path(name: str) -> str:
@@ -167,19 +195,21 @@ def bin_path(name: str) -> str:
 
 
 def install() -> Dict[str, Tuple[str, Optional[float]]]:
-    """Build every artifact and point ``_build/bin/<file>`` at it (a
-    relative symlink, replaced atomically); returns each artifact's
-    path and compile seconds as :func:`build` does."""
-    built = {}
-    for name in ARTIFACTS:
-        path, seconds = build(name)
-        link = bin_path(name)
-        os.makedirs(os.path.dirname(link), exist_ok=True)
-        tmp = f"{link}.tmp{os.getpid()}"
-        os.symlink(os.path.relpath(path, os.path.dirname(link)), tmp)
-        os.replace(tmp, link)
-        built[name] = (path, seconds)
-    return built
+    """Build every artifact (:func:`build_all`) and point
+    ``_build/bin/<file>`` at each one that built (a relative symlink,
+    replaced atomically); returns and raises as :func:`build_all`."""
+    try:
+        return build_all(ARTIFACTS)
+    finally:
+        for name in ARTIFACTS:
+            path = artifact_path(name)
+            if os.path.exists(path):
+                link = bin_path(name)
+                os.makedirs(os.path.dirname(link), exist_ok=True)
+                tmp = f"{link}.tmp{os.getpid()}"
+                os.symlink(os.path.relpath(path, os.path.dirname(link)),
+                           tmp)
+                os.replace(tmp, link)
 
 
 def main(argv=None) -> int:

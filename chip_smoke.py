@@ -64,7 +64,7 @@ it started and exits non-zero without printing the ``ok`` line:
    ``binder@.service`` instances over the deploy phase's zone in the
    port's ZooKeeper server.  Every host through the balancer, ``bdig``
    on a few names, 60,000 queries from the port-built ``dnsblast`` (16
-   source addresses, window 64) and as many UDP plus 500 TCP from the
+   source addresses, window 64) and 30,000 UDP plus 500 TCP from the
    Python client with every reply checked; a ``zkput`` fixture read
    back within 5 s; a scale 4 -> 2 -> 4 under a stream, a SIGKILL
    restored by a converge, the metric ports, a teardown that leaves
@@ -155,16 +155,43 @@ it started and exits non-zero without printing the ``ok`` line:
    PTR, the fixture's SRV with its A additionals and the OPT echo of
    payload 1232, each parsed by ``ns_parserr``; and the RFC golden
    byte-vectors through ``binder_torch.dns``.
-15. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
+15. zone: ``tools/zone_smoke.py`` on the port at its default size, its
+   probes from 10,000 to 1,000,000 names, and the C zone lane at the
+   serve phase's zone.  (a) ``python -m binder_torch.probe.zone`` at
+   2,000 and 100,000 names, each in its own process: mutation p50 at
+   100,000 at most 4.0x the control's, no re-rendered answer differing
+   from a fresh engine render, the chunked rebuild's worst loop lag at
+   most 250 ms with no lookup missed mid-rebuild and at least 2 chunks,
+   and ``validate_mirror_metrics`` on a collector-wired server.  (b)
+   the zone probe at 10,000 and 1,000,000 names (150 mutations, the
+   bench's storm) and ``python -m binder_torch.probe.verify`` at 10,000,
+   100,000 and 1,000,000 (400 mutations): no parity failure and no
+   violation at any size, mutation p50 at 1,000,000 at most 4.0x the
+   10,000's in both probes, the rebuild at 1,000,000 within 250 ms of
+   loop lag and missing no lookup; each probe's readings and peak RSS
+   are printed.  The two sizes of each latency ratio run back to back
+   with nothing else running; the verify probe at 100,000 runs beside
+   leg (c).  (c) an in-process ``BinderServer`` with the C zone
+   resident and ``degradation`` on (clamp 5 s, cap 10 s): once the
+   zone fill settles, a seeded sample of 2,000 hosts asked once; one of
+   them mutated and the session expired, the sample asked during the
+   chunked rebuild and after it: every answer right, the mutated host
+   served by the C zone, the loop's lag under the watchdog's 250 ms;
+   then the session lost: every answer stale-served with TTL at most 5;
+   and back: every answer right with the record's own TTL.  The C
+   zone's share of the sample after each event is printed, and whether
+   it comes back within 10 s.
+16. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
    over the serve and deploy latencies and over a seeded 2**24 + 1
    batch, held against numpy.
-16. collective: the data-parallel mean over NCCL on the one card.
+17. collective: the data-parallel mean over NCCL on the one card.
 
 The port has no hand-written GPU kernel (the JAX package has no Pallas
 kernel to port; the native code is host code), so the kernel line is
 an empty list.  Before it, a ``{"native": ...}`` line carries the build
 seconds, the lane parity and the C lane's hits in each phase.  Phases 9
-to 14 print each of their departures from the reference smoke.  The last
+to 15 print each of their departures from the reference smoke, and every
+phase's seconds are printed as it ends.  The last
 line is ``{"ok": true, "device": {...}}``.  ``--churn ZK_PORT
 DNS_PORT [--spread]`` is the deploy and topology phases'
 churn process, started by the script itself; ``--churn-cost N[,N...]``
@@ -390,16 +417,18 @@ def native_phase(hosts: int = HOSTS):
     """Build the port's native code, check the extension, and hold the
     C lane against the Python lane; returns the report."""
     from binder_torch import fastio_build
-    report = {"build_s": {}, "compiler_s": {}, "clean_checkout": {}}
-    for name in ("extension", "mbalancer", "instance_adjust"):
-        report["clean_checkout"][name] = not os.path.exists(
-            fastio_build.artifact_path(name))
-        t0 = time.monotonic()
-        path, compiled = fastio_build.build(name)
-        report["build_s"][name] = time.monotonic() - t0
-        report["compiler_s"][name] = compiled
+    names = ("extension", "mbalancer", "instance_adjust")
+    report = {"clean_checkout": {
+        name: not os.path.exists(fastio_build.artifact_path(name))
+        for name in names}}
+    t0 = time.monotonic()
+    built = fastio_build.build_all(names)     # the compilers at once
+    report["build_wall_s"] = time.monotonic() - t0
+    report["build_s"] = {name: seconds
+                         for name, (_, seconds) in built.items()}
+    for name, (path, seconds) in built.items():
         log(f"native: {name} at {os.path.relpath(path, ROOT)}, "
-            f"{report['build_s'][name]}s")
+            f"compiled in {seconds}s")
     from binder_torch import _binderfastio
     if os.path.dirname(os.path.dirname(_binderfastio.__file__)) != \
             fastio_build.BUILD_DIR:
@@ -877,7 +906,8 @@ def serve_phase(hosts: int = HOSTS, n_udp: int = N_UDP,
 # -- phase 4: deploy --------------------------------------------------
 
 DEPLOY_SHARDS = 4
-DEPLOY_UDP = 60_000
+#: the 16-socket stream (``STREAM_CUTS``)
+DEPLOY_UDP = 30_000
 FLOWS = 16
 CHURN_NAMES = 64
 CHURN_INTERVAL_S = 0.002
@@ -1884,7 +1914,8 @@ def balancer_phase(hosts: int = HOSTS, n_udp: int = BALANCER_UDP,
 # -- phase 6: topology ------------------------------------------------
 
 TOPOLOGY_BACKENDS = 4
-TOPOLOGY_UDP = 60_000
+#: the 16-address stream (``STREAM_CUTS``)
+TOPOLOGY_UDP = 30_000
 TOPOLOGY_BOOT_DEADLINE_S = 300.0
 #: one ``python -m binder_torch.topology`` command (``instance_adjust
 #: -w`` waits up to 60 s for each instance)
@@ -2405,9 +2436,9 @@ SYSTEMD_BLAST = 60_000
 SYSTEMD_BLAST_SOURCES = 16
 SYSTEMD_BLAST_WINDOW = 64
 SYSTEMD_BLAST_TEMPLATES = 4096
-#: the Python client's queries, every reply checked: as many as
-#: dnsblast sends, so the two clients' qps come from like windows
-SYSTEMD_UDP = SYSTEMD_BLAST
+#: the Python client's queries, every reply checked: half as many as
+#: dnsblast sends (``STREAM_CUTS``)
+SYSTEMD_UDP = SYSTEMD_BLAST // 2
 SYSTEMD_CALL_S = 300.0
 #: the Python client's addresses on the installed stack, and those of
 #: each later check, so every check meets the balancer's client
@@ -4525,19 +4556,21 @@ def inproc_reading(server) -> dict:
     return out
 
 
-async def verify_settle(server, deadline_s: float = SETTLE_DEADLINE_S):
+async def verify_settle(server, what: str = "verify",
+                        deadline_s: float = SETTLE_DEADLINE_S):
     """Wait until the zone fill and the precompile seed are done."""
     t0 = time.monotonic()
     last = None
     while True:
         entries = inproc_reading(server)["binder_zone_entries"]
-        seed = server._precompiler._seed_task
+        pc = server._precompiler
+        seed = None if pc is None else pc._seed_task
         if (entries > 0 and entries == last
                 and (seed is None or seed.done())):
             return {"zone_entries": entries,
                     "settle_s": time.monotonic() - t0}
         if time.monotonic() - t0 > deadline_s:
-            raise PhaseError(f"verify: the zone fill and seed did not "
+            raise PhaseError(f"{what}: the zone fill and seed did not "
                              f"settle in {deadline_s:.0f}s")
         last = entries
         await asyncio.sleep(SETTLE_EVERY_S)
@@ -5146,7 +5179,519 @@ def tcp_phase(hosts: int = HOSTS, native=None) -> dict:
     return tcp, conf
 
 
-# -- phase 15: aggregate ----------------------------------------------
+# -- phase 15: zone ---------------------------------------------------
+
+#: ``tools/zone_smoke.py``'s default sizes and gates
+#: (``zone_smoke.py:39-47``): a control zone and the smoke zone, the
+#: mutation p50 ratio between them, and the loop-lag watchdog's stall
+#: threshold (``introspect/watchdog.py``) the chunked rebuild must stay
+#: under
+ZONE_CONTROL = 2_000
+ZONE_SMOKE = 100_000
+ZONE_LAT_RATIO_MAX = 4.0
+ZONE_STALL_MS = 250.0
+#: leg (b): the bench's ``zone_scale`` sizes around the smoke's
+#: (``bench_impl.py:2113-2114``), each probe in its own process with the
+#: bench's arguments (``bench_impl.py:2141-2147``), and the verify
+#: probe's sizes and burst (``tools/verify_probe.py``)
+ZONE_SCALE = (10_000, 1_000_000)
+ZONE_SCALE_MUTATIONS = 150
+VERIFY_PROBE_SIZES = (10_000, 100_000, 1_000_000)
+VERIFY_PROBE_MUTATIONS = 400
+#: the checker's per-slice budget (``verify/checker.py``): the audit's
+#: worst slice is read against it, not gated
+AUDIT_SLICE_BUDGET_MS = 2.0
+#: a probe's deadline: a base plus a second for every 5,000 names
+ZONE_PROBE_BASE_S = 120.0
+#: leg (c): the seeded sample of the zone's hosts, the degradation
+#: settings (chaos (b)'s clamp; a cap far beyond the few seconds the
+#: leg stays stale, so every stale ask is stale-serving), how long to
+#: wait for each state and for the C zone's share to come back
+ZONE_LANE_SAMPLE = 2_000
+ZONE_LANE_CLAMP_S = 5
+ZONE_LANE_MAX_STALENESS_S = 10.0
+ZONE_LANE_STATE_S = 10.0
+ZONE_LANE_RECOVER_S = 10.0
+ZONE_LANE_RECOVER_SAMPLE = 200
+#: the address the leg moves its mutated host to (outside the zone's
+#: 10.0.0.0/15 and every fixture's range)
+ZONE_LANE_MOVED = "10.205.0.1"
+ZONE_DEPARTURES = (
+    "probes: python -m binder_torch.probe.{{zone,verify}}, each size in "
+    "its own process as the bench runs them (zone_smoke.py runs both "
+    "sizes in its own process)",
+    "scale: leg (b) runs the zone probe at 10,000 and 1,000,000 names "
+    "and the verify probe at 10,000, 100,000 and 1,000,000, with the "
+    "bench's arguments; the reference smoke runs neither",
+    "C lane: leg (c) holds a server at {lane} names with the C zone "
+    "resident through a session rebuild and a degradation cycle; the "
+    "reference probes have no C lane",
+    "order: the two sizes of each latency ratio run back to back with "
+    "nothing else running; the verify probe at its middle size runs "
+    "beside leg (c) in the smoke's own process (the bench runs one probe "
+    "at a time)")
+
+
+def rss_peak_kb(pid: int):
+    """The larger of ``pid``'s ``VmHWM`` (its peak so far, where the
+    kernel reports one) and ``VmRSS`` (now), or None once it has
+    exited."""
+    seen = []
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith(("VmHWM:", "VmRSS:")):
+                    seen.append(int(line.split()[1]))
+    except OSError:
+        pass
+    return max(seen, default=None)
+
+
+def run_probe(kind: str, n: int, *args: int) -> dict:
+    """``python -m binder_torch.probe.<kind> n args`` in a process of its
+    own; its JSON line, with the process's wall seconds and peak RSS
+    under ``"process"``.  The peak is the largest ``rss_peak_kb`` read
+    while it ran, every 20 ms (a container's ``/proc`` may give ``VmRSS``
+    alone): ``wait4``'s ``ru_maxrss`` would start from the smoke's own
+    peak, which the child inherits at the fork."""
+    deadline_s = ZONE_PROBE_BASE_S + n / 5000
+    argv = [sys.executable, "-m", f"binder_torch.probe.{kind}",
+            str(n), *map(str, args)]
+    with tempfile.TemporaryFile() as out, tempfile.TemporaryFile() as err:
+        t0 = time.monotonic()
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=out, stderr=err)
+        peak = 0
+        try:
+            while proc.poll() is None:
+                peak = max(peak, rss_peak_kb(proc.pid) or 0)
+                if time.monotonic() - t0 > deadline_s:
+                    raise PhaseError(f"zone: probe {kind} at {n} names "
+                                     f"ran past {deadline_s:.0f}s")
+                time.sleep(0.02)
+        finally:
+            reap(proc)
+        wall_s = time.monotonic() - t0
+        out.seek(0)
+        err.seek(0)
+        lines = out.read().decode().splitlines()
+        if proc.returncode != 0 or not lines:
+            raise PhaseError(f"zone: probe {kind} at {n} names exited "
+                             f"{proc.returncode}: "
+                             f"{err.read().decode()[-2000:]}")
+    report = json.loads(lines[-1])
+    report["process"] = {"wall_s": wall_s, "peak_rss_kb": peak}
+    log(json.dumps({"zone_probe": {"kind": kind, **report}}))
+    return report
+
+
+def scrape_mirror_metrics() -> list:
+    """``zone_smoke.py``'s exposition check: a collector-wired port
+    server over a small mirror, held to ``validate_mirror_metrics``."""
+    from binder_torch.metrics.collector import MetricsCollector
+    from binder_torch.server import BinderServer
+    from binder_torch.store import FakeStore, MirrorCache
+    from tools.lint import validate_mirror_metrics
+    collector = MetricsCollector()
+    store = FakeStore()
+    store.put_json("/com/smoke/web",
+                   {"type": "host", "host": {"address": "10.0.0.1"}})
+    cache = MirrorCache(store, "smoke.com", collector=collector)
+    store.start_session()
+    BinderServer(zk_cache=cache, dns_domain="smoke.com",
+                 collector=collector, cache_size=16)
+    return validate_mirror_metrics(collector.expose())
+
+
+def zone_smoke_leg(ctl: dict, big: dict) -> dict:
+    """Leg (a): the port of ``tools/zone_smoke.py``'s gates
+    (``zone_smoke.py:69-108``) over the control's and the smoke size's
+    probe runs."""
+    errors = []
+    smoke = big["names"]
+    ratio = big["mutation_p50_us"] / max(1e-9, ctl["mutation_p50_us"])
+    if ratio > ZONE_LAT_RATIO_MAX:
+        errors.append(f"mutation latency scales with zone size: p50 "
+                      f"{big['mutation_p50_us']}us at {smoke} names vs "
+                      f"{ctl['mutation_p50_us']}us at {ctl['names']} "
+                      f"(ratio {ratio:.2f} > {ZONE_LAT_RATIO_MAX})")
+    parity = ctl["parity_failures"] + big["parity_failures"]
+    if parity:
+        errors.append(f"{parity} re-rendered answer(s) diverged from a "
+                      "fresh engine render")
+    if big["rebuild_max_loop_lag_ms"] > ZONE_STALL_MS:
+        errors.append(f"chunked rebuild stalled the loop "
+                      f"{big['rebuild_max_loop_lag_ms']}ms at {smoke} "
+                      f"names (threshold {ZONE_STALL_MS}ms)")
+    if big["rebuild_miss_mid"]:
+        errors.append(f"{big['rebuild_miss_mid']} lookup(s) went dark "
+                      "during the chunked rebuild")
+    if big["rebuild_chunks"] < 2:
+        errors.append(f"the rebuild at {smoke} names did not chunk")
+    lint = scrape_mirror_metrics()
+    if lint:
+        errors.append("mirror metrics exposition: " + "; ".join(lint[:5]))
+    return {"control_names": ctl["names"], "smoke_names": smoke,
+            "mutation_p50_ratio": ratio, "mirror_metrics_errors": lint,
+            "errors": errors}
+
+
+def zone_scale_leg(zone: dict, verify: dict) -> dict:
+    """Leg (b): the scale gates over the zone probe's runs (``zone``,
+    by size, leg (a)'s smoke size among them) and the verify probe's
+    (``verify``), and the readings per size."""
+    errors = []
+    for n, r in sorted(zone.items()):
+        if r["parity_failures"]:
+            errors.append(f"zone probe at {n}: {r['parity_failures']} "
+                          "parity failure(s)")
+        if r["rebuild_miss_mid"]:
+            errors.append(f"zone probe at {n}: {r['rebuild_miss_mid']} "
+                          "lookup(s) missed mid-rebuild")
+    for n, r in sorted(verify.items()):
+        if r["violations"]:
+            errors.append(f"verify probe at {n}: {r['violations']} "
+                          "violation(s) on an uncorrupted zone")
+    ratios = {}
+    for kind, runs in (("zone", zone), ("verify", verify)):
+        lo, hi = min(runs), max(runs)
+        ratios[kind] = (runs[hi]["mutation_p50_us"]
+                        / max(1e-9, runs[lo]["mutation_p50_us"]))
+        if ratios[kind] > ZONE_LAT_RATIO_MAX:
+            errors.append(f"{kind} probe: mutation p50 "
+                          f"{runs[hi]['mutation_p50_us']}us at {hi} names "
+                          f"vs {runs[lo]['mutation_p50_us']}us at {lo} "
+                          f"(ratio {ratios[kind]:.2f} > "
+                          f"{ZONE_LAT_RATIO_MAX})")
+    top = zone[max(zone)]
+    if top["rebuild_max_loop_lag_ms"] > ZONE_STALL_MS:
+        errors.append(f"the rebuild at {max(zone)} names stalled the loop "
+                      f"{top['rebuild_max_loop_lag_ms']}ms (threshold "
+                      f"{ZONE_STALL_MS}ms)")
+    readings = {"zone": {n: {
+        "mirror_bytes_per_name": r["mirror_rss_per_name_bytes"],
+        "mirror_build_s": r["mirror_build_s"],
+        "mutation_p50_us": r["mutation_p50_us"],
+        "mutation_p99_us": r["mutation_p99_us"],
+        "storm_burst": r["storm_burst"],
+        "storm_recovery_s": r["storm_recovery_s"],
+        "storm_shed": r["storm_shed"], "rebuild_s": r["rebuild_s"],
+        "rebuild_chunks": r["rebuild_chunks"],
+        "rebuild_max_loop_lag_ms": r["rebuild_max_loop_lag_ms"],
+        "rebuild_served_mid": r["rebuild_served_mid"],
+        **r["process"]} for n, r in sorted(zone.items())},
+        "verify": {n: {
+            "mutation_p50_us": r["mutation_p50_us"],
+            "mutation_checked_p50_us": r["mutation_checked_p50_us"],
+            "propagation": r["propagation"],
+            "audit_sample": r["audit_sample"],
+            "audit_wall_s": r["audit_wall_s"],
+            "audit_slices": r["audit_slices"],
+            "audit_worst_slice_ms": r["audit_worst_slice_ms"],
+            "audit_worst_slice_over_budget":
+                r["audit_worst_slice_ms"] > AUDIT_SLICE_BUDGET_MS,
+            "violations": r["violations"], **r["process"]}
+            for n, r in sorted(verify.items())},
+        "mutation_p50_ratio": ratios}
+    return {"readings": readings, "errors": errors}
+
+
+async def lane_ask(server, name: str, qid: int):
+    """One A query for ``name``: the reply and whether the C zone
+    served it."""
+    from binder_torch import _binderfastio
+    from binder_torch.dns import Message, Type, make_query
+    before = _binderfastio.fastpath_stats(server._fastpath)["zone_hits"]
+    data = await ask_async(server.udp_port,
+                           make_query(name, Type.A, qid=qid).encode())
+    after = _binderfastio.fastpath_stats(server._fastpath)["zone_hits"]
+    return Message.decode(data), after > before
+
+
+async def lane_round(server, sample, expect, what: str, errors,
+                     ttl=None, clamp=None, during=None) -> dict:
+    """Ask every name of ``sample`` once, one at a time; every reply
+    must be NOERROR with the expected address, and with the TTL
+    ``ttl[name]`` or at most ``clamp`` where given.  ``during()``, while
+    above 0, marks the asks made in it (the rebuild in flight)."""
+    from binder_torch.dns import Rcode
+    names = {v: k for k, v in vars(Rcode).items() if k.isupper()}
+    out = {"rcodes": {}, "ttls": {}, "zone": {}, "during": 0,
+           "zone_served_during": 0}
+    bad = []
+    for k, name in enumerate(sample):
+        mid = during is not None and during() > 0
+        try:
+            msg, zoned = await lane_ask(server, name, (k + 1) & 0xFFFF)
+        except asyncio.TimeoutError:
+            bad.append(f"{what}: no reply for {name}")
+            continue
+        out["zone"][name] = zoned
+        out["during"] += mid
+        out["zone_served_during"] += mid and zoned
+        rcode = names.get(msg.rcode, str(msg.rcode))
+        out["rcodes"][rcode] = out["rcodes"].get(rcode, 0) + 1
+        got = [a.address for a in msg.answers if hasattr(a, "address")]
+        t = msg.answers[0].ttl if msg.answers else None
+        out["ttls"][name] = t
+        if (msg.rcode != Rcode.NOERROR or got != [expect[name]]
+                or (ttl is not None and t != ttl[name])
+                or (clamp is not None and t > clamp)):
+            bad.append(f"{what}: {name} answered {rcode} {got} TTL {t}, "
+                       f"expected {expect[name]}"
+                       + (f" TTL {ttl[name]}" if ttl else "")
+                       + (f" TTL <= {clamp}" if clamp else ""))
+    if bad:
+        errors += bad[:5] + [f"{what}: {len(bad)} wrong or missing "
+                             f"of {len(sample)}"]
+    return out
+
+
+async def wait_state(intro, state: str, what: str) -> float:
+    """Seconds until ``/status`` shows the degradation ``state``."""
+    t0 = time.monotonic()
+    while True:
+        snap = intro.snapshot()["policy"]["degradation"]
+        if snap["state"] == state:
+            return time.monotonic() - t0
+        if time.monotonic() - t0 > ZONE_LANE_STATE_S:
+            raise PhaseError(f"zone: {what}: /status shows "
+                             f"{snap['state']}, not {state}, after "
+                             f"{ZONE_LANE_STATE_S:.0f}s")
+        await asyncio.sleep(0.02)
+
+
+def zone_share(r: dict, names) -> float:
+    """The share of ``names`` the C zone served in round ``r``."""
+    return sum(r["zone"].get(n, False) for n in names) / max(1, len(names))
+
+
+async def zone_lane_run(hosts: int, n_sample: int,
+                        recover_s: float) -> dict:
+    """Leg (c): an in-process server at ``hosts`` names with the C zone
+    resident, through a session rebuild and a degradation cycle."""
+    import gc
+    from binder_torch.introspect import (FlightRecorder, Introspector,
+                                         LoopLagWatchdog)
+    from binder_torch.metrics.collector import MetricsCollector
+    from binder_torch.server import BinderServer
+    from binder_torch.store import FakeStore, MirrorCache
+    from binder_torch.store.fake import load_state, populate_synthetic
+    errors = []
+    report = {"zone_names": hosts, "sample": n_sample,
+              "stale_ttl_clamp_s": ZONE_LANE_CLAMP_S,
+              "max_staleness_s": ZONE_LANE_MAX_STALENESS_S}
+    collector = MetricsCollector()
+    recorder = FlightRecorder(capacity=1024)
+    store = FakeStore(recorder=recorder)
+    load_state(store, zone_fixture())
+    populate_synthetic(store, DOMAIN, hosts=hosts)
+    cache = MirrorCache(store, DOMAIN, collector=collector,
+                        recorder=recorder)
+    store.start_session()
+    server = BinderServer(
+        zk_cache=cache, dns_domain=DOMAIN, datacenter_name="dc0",
+        host="127.0.0.1", port=0, collector=collector, query_log=False,
+        flight_recorder=recorder, rrl={"allowlist": ["127.0.0.0/8"]},
+        degradation={"maxStalenessSeconds": ZONE_LANE_MAX_STALENESS_S,
+                     "staleTtlClampSeconds": ZONE_LANE_CLAMP_S})
+    t0 = time.monotonic()
+    await server.start()
+    frozen = False
+    try:
+        if server._fastpath is None or not server._zone_enabled:
+            raise PhaseError("zone: the server has no C zone lane")
+        intro = Introspector(server=server, recorder=recorder,
+                             name="chip-smoke-zone")
+        intro.set_loop(asyncio.get_running_loop())
+        report.update(await verify_settle(server, "zone"))
+        report["boot_s"] = time.monotonic() - t0
+        if len(cache.nodes) > 100_000:
+            # main.py's posture for a large zone: the mirror frozen out
+            # of the collector, so a gen-2 pass is no serving stall
+            gc.collect()
+            gc.freeze()
+            frozen = True
+        racks = max(1, min(1024, hosts // 512))
+        picks = random.Random(SEED + 11).sample(range(hosts), n_sample)
+        sample = [host_name(i, racks) for i in picks]
+        expect = {host_name(i, racks): host_addr(i) for i in picks}
+        moved = sample[0]
+        rest = sample[1:]
+        before = inproc_reading(server)
+
+        # 1. the sample once, fresh: the record's own TTLs
+        r1 = await lane_round(server, sample, expect, "fresh", errors)
+        ttl = dict(r1["ttls"])
+        report["fresh"] = {"zone_share": zone_share(r1, sample),
+                           "rcodes": r1["rcodes"],
+                           "ttls": sorted({t for t in ttl.values()
+                                           if t is not None})}
+        if any(t is None or t <= ZONE_LANE_CLAMP_S for t in ttl.values()):
+            errors.append(f"fresh TTLs {report['fresh']['ttls']} are not "
+                          f"above the clamp {ZONE_LANE_CLAMP_S}: the "
+                          "stale check would prove nothing")
+
+        # 2. a session rebuild right after a mutation, asked during and
+        # after the chunked walk
+        i_moved = picks[0]
+        epoch0, chunks0 = cache.epoch, cache.rebuild_chunks
+        watchdog = LoopLagWatchdog(interval=0.002)
+        watchdog.start()
+        store.put_json(f"/com/foo/zs/r{i_moved % racks:04d}/h{i_moved:06d}",
+                       {"type": "host", "host": {"address": ZONE_LANE_MOVED}})
+        expect[moved] = ZONE_LANE_MOVED
+        t1 = time.monotonic()
+        store.expire_session()
+        r2 = await lane_round(server, sample, expect, "mid-rebuild", errors,
+                              during=cache.rebuild_pending)
+        while cache.rebuild_pending() or server._zone_dirty:
+            await asyncio.sleep(0.005)
+        drained_s = time.monotonic() - t1
+        r3 = await lane_round(server, sample, expect, "after rebuild",
+                              errors, ttl=ttl)
+        watchdog.stop()
+        lag = watchdog.snapshot()
+        report["rebuild"] = {
+            "epochs": cache.epoch - epoch0,
+            "seconds": cache.last_rebuild_duration_s,
+            "drained_s": drained_s,
+            "chunks": cache.rebuild_chunks - chunks0,
+            "asked_mid_rebuild": r2["during"],
+            "zone_served_mid_rebuild": r2["zone_served_during"],
+            "zone_share_while_rebuilding": zone_share(r2, rest),
+            "rcodes": r2["rcodes"], "rcodes_after": r3["rcodes"],
+            "moved_host_zone_served_after": r3["zone"].get(moved),
+            "unchanged_zone_share_after": zone_share(r3, rest),
+            "max_loop_lag_ms": lag["max_lag_seconds"] * 1000,
+            "loop_stalls": lag["stalls"]}
+        if not r3["zone"].get(moved):
+            errors.append(f"the mutated host {moved} was not served from "
+                          "the C zone after the rebuild")
+        if lag["max_lag_seconds"] >= lag["stall_threshold_seconds"]:
+            errors.append(f"the loop lagged {lag['max_lag_seconds']:.3f}s "
+                          "through the rebuild (watchdog threshold "
+                          f"{lag['stall_threshold_seconds']}s)")
+
+        # 3. a degradation cycle: the session lost, then back
+        watchdog = LoopLagWatchdog(interval=0.002)
+        watchdog.start()
+        store.lose_session()
+        to_stale = await wait_state(intro, "stale-serving", "session lost")
+        r4 = await lane_round(server, sample, expect, "stale", errors,
+                              clamp=ZONE_LANE_CLAMP_S)
+        still = intro.snapshot()["policy"]["degradation"]["state"]
+        if still != "stale-serving":
+            errors.append(f"the stale round ended in {still}: raise the "
+                          "cap")
+        store.start_session()
+        to_fresh = await wait_state(intro, "fresh", "session back")
+        t2 = time.monotonic()
+        r5 = await lane_round(server, sample, expect, "recovered", errors,
+                              ttl=ttl)
+        # does the C zone's share come back by itself?
+        probe = rest[:ZONE_LANE_RECOVER_SAMPLE]
+        target = zone_share(r1, probe)
+        polls = []
+        while True:
+            rp = await lane_round(server, probe, expect, "recovering",
+                                  errors, ttl=ttl)
+            polls.append(zone_share(rp, probe))
+            back = polls[-1] >= target
+            if back or time.monotonic() - t2 > recover_s:
+                break
+            await asyncio.sleep(1.0)
+        watchdog.stop()
+        lag = watchdog.snapshot()
+        stale_ttls = sorted({t for t in r4["ttls"].values()
+                             if t is not None})
+        report["degradation"] = {
+            "to_stale_s": to_stale, "to_fresh_s": to_fresh,
+            "stale_rcodes": r4["rcodes"], "stale_ttls": stale_ttls,
+            "stale_zone_share": zone_share(r4, sample),
+            "recovered_rcodes": r5["rcodes"],
+            "zone_share_after_recovery": zone_share(r5, rest),
+            "zone_share_polls": polls,
+            "zone_share_target": target,
+            "zone_share_back_within_s": (time.monotonic() - t2
+                                         if back else None),
+            "max_loop_lag_ms": lag["max_lag_seconds"] * 1000,
+            "loop_stalls": lag["stalls"],
+            "transitions": [(t["from"], t["to"]) for t in
+                            server._policy.introspect()["transitions"]]}
+        report["c_lane"] = native_delta(before, inproc_reading(server))
+        errors += native_gate("zone", before, inproc_reading(server))
+    finally:
+        await server.stop()
+        if frozen:
+            gc.unfreeze()
+    report["errors"] = errors
+    return report
+
+
+def zone_phase(control: int = ZONE_CONTROL, smoke: int = ZONE_SMOKE,
+               scale=ZONE_SCALE, verify_sizes=VERIFY_PROBE_SIZES,
+               lane_hosts: int = HOSTS, lane_sample: int = ZONE_LANE_SAMPLE,
+               recover_s: float = ZONE_LANE_RECOVER_S, native=None) -> dict:
+    """Port of ``tools/zone_smoke.py`` at its default size (leg a), the
+    zone and verify probes from 10,000 to 1,000,000 names (leg b), and
+    the C zone lane through a session rebuild and a degradation cycle
+    (leg c); returns the report.
+
+    Each probe size runs in a process of its own.  The sizes that a
+    latency ratio reads (the zone probe's control and smoke sizes, its
+    smallest and largest, and the verify probe's) run one at a time
+    with nothing else running, a ratio's two sizes back to back; then
+    the other verify sizes run beside leg (c), which runs in this
+    process."""
+    import concurrent.futures
+    import gc
+    t_phase = time.monotonic()
+    departures = [d.format(lane=lane_hosts) for d in ZONE_DEPARTURES]
+    for d in departures:
+        log("zone departure: " + d)
+    zone_sizes = sorted({smoke, *scale})
+    zone_args = {n: (ZONE_SCALE_MUTATIONS, max(500, smoke // 20))
+                 if n == smoke else
+                 (ZONE_SCALE_MUTATIONS, max(500, min(5000, n // 10)))
+                 for n in zone_sizes}
+    verify_lo, verify_hi = min(verify_sizes), max(verify_sizes)
+    t_solo = time.monotonic()
+    ctl = run_probe("zone", control, 100, max(100, control // 4))
+    zone = {}
+    for n in dict.fromkeys((smoke, zone_sizes[0], zone_sizes[-1])):
+        zone[n] = run_probe("zone", n, *zone_args[n])
+    verify = {n: run_probe("verify", n, VERIFY_PROBE_MUTATIONS)
+              for n in dict.fromkeys((verify_lo, verify_hi))}
+    solo_s = time.monotonic() - t_solo
+    rest = [("zone", n, *zone_args[n]) for n in zone_sizes
+            if n not in zone]
+    rest += [("verify", n, VERIFY_PROBE_MUTATIONS) for n in verify_sizes
+             if n not in verify]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        beside = pool.submit(lambda: [run_probe(*r) for r in rest])
+        t_lane = time.monotonic()
+        lane = asyncio.run(zone_lane_run(lane_hosts, lane_sample,
+                                         recover_s))
+        lane["phase_s"] = time.monotonic() - t_lane
+        for (kind, n, *_), r in zip(rest, beside.result()):
+            (zone if kind == "zone" else verify)[n] = r
+    gc.collect()
+    smoke_leg = zone_smoke_leg(ctl, zone[smoke])
+    scale_leg = zone_scale_leg(zone, verify)
+    errors = (smoke_leg.pop("errors") + scale_leg.pop("errors")
+              + lane.pop("errors"))
+    report = {"smoke": smoke_leg, "scale": scale_leg["readings"],
+              "lane": lane, "departures": departures, "solo_s": solo_s,
+              "phase_s": time.monotonic() - t_phase,
+              "errors": len(errors)}
+    log(json.dumps({"zone": report}))
+    if native is not None:
+        native["zone"] = lane["c_lane"]
+    check_phase("zone", errors, descendants(os.getpid()))
+    return report
+
+
+# -- phase 16: aggregate ----------------------------------------------
 
 
 def reference_percentile(ordered: np.ndarray, q: float) -> np.float32:
@@ -5222,19 +5767,34 @@ def aggregate_phase(torch, latencies, sharded) -> None:
     hold_aggregate(torch, aggregate, big, "lognormal 2**24+1")
 
 
-# -- phase 16: collective ---------------------------------------------
+# -- phase 17: collective ---------------------------------------------
 
 
 def collective_phase() -> None:
+    import concurrent.futures
     from binder_torch.graft_entry import dryrun_multichip, run_ranks
-    dryrun_multichip(1)
-    (mean,) = run_ranks(1, "cuda", timeout_s=RANK_DEADLINE_S)
+    # the two spawns at once: each rank is its own single-rank group
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        dry = pool.submit(dryrun_multichip, 1)
+        ranks = pool.submit(run_ranks, 1, "cuda", timeout_s=RANK_DEADLINE_S)
+        dry.result()
+        (mean,) = ranks.result()
     expect = float(np.mean(np.linspace(0.0, 1.0, 8, dtype=np.float32),
                            dtype=np.float64))
     log(json.dumps({"collective": {"backend": "nccl", "ranks": 1,
                                    "mean": mean, "expected": expect}}))
     if abs(mean - expect) > 1e-6:
         raise PhaseError(f"collective: mean {mean!r} != {expect!r}")
+
+
+#: streams cut so that the zone phase fits in the smoke's 600 s: each
+#: duplicates a stream of an earlier phase, and none cuts a zone, the
+#: churn's rate or a gate
+STREAM_CUTS = (
+    "deploy: the 16-socket UDP stream is 30,000 queries, not 60,000",
+    "topology: the 16-address UDP stream is 30,000 queries, not 60,000",
+    "systemd: the Python client sends 30,000 UDP queries, not 60,000 "
+    "(dnsblast keeps its 60,000)")
 
 
 def main() -> int:
@@ -5250,22 +5810,35 @@ def main() -> int:
                           CHURN_CLIENTS if sys.argv[4:5] == ["--spread"]
                           else None)
     native = {}
+    seconds = {}
+    for cut in STREAM_CUTS:
+        log("cut: " + cut)
+
+    def timed(name, phase, *args, **kw):
+        t0 = time.monotonic()
+        try:
+            return phase(*args, **kw)
+        finally:
+            seconds[name] = time.monotonic() - t0
+            log(json.dumps({"phase_seconds": seconds}))
+
     try:
-        torch = device_phase()
-        built = native_phase()
-        latencies = serve_phase(native=native)
-        sharded = deploy_phase(native=native)
-        balancer_phase(native=native)
-        topology_phase(native=native)
-        systemd_phase(native=native)
-        chaos_phase(native=native)
-        hostile_phase(native=native)
-        population_phase(native=native)
-        federation_phase(native=native)
-        verify_phase(native=native)
-        tcp_phase(native=native)
-        aggregate_phase(torch, latencies, sharded)
-        collective_phase()
+        torch = timed("device", device_phase)
+        built = timed("native", native_phase)
+        latencies = timed("serve", serve_phase, native=native)
+        sharded = timed("deploy", deploy_phase, native=native)
+        timed("balancer", balancer_phase, native=native)
+        timed("topology", topology_phase, native=native)
+        timed("systemd", systemd_phase, native=native)
+        timed("chaos", chaos_phase, native=native)
+        timed("hostile", hostile_phase, native=native)
+        timed("population", population_phase, native=native)
+        timed("federation", federation_phase, native=native)
+        timed("verify", verify_phase, native=native)
+        timed("tcp", tcp_phase, native=native)
+        timed("zone", zone_phase, native=native)
+        timed("aggregate", aggregate_phase, torch, latencies, sharded)
+        timed("collective", collective_phase)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5276,7 +5849,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     log(json.dumps({"native": {
-        "build_s": built["build_s"], "compiler_s": built["compiler_s"],
+        "build_s": built["build_s"], "build_wall_s": built["build_wall_s"],
         "clean_checkout": built["clean_checkout"],
         "lane_parity": built["parity"], "c_lane_hits": native}}))
     log(json.dumps({"kernels": []}))
