@@ -223,6 +223,29 @@ class ZKTestServer:
             raise ValueError("bad frame")
         return await reader.readexactly(length)
 
+    def _create(self, path: str, data: bytes) -> int:
+        parent_path, name = self._split(path)
+        parent = self._find(parent_path)
+        if parent is None:
+            return Err.NONODE
+        if name in parent.children:
+            return Err.NODEEXISTS
+        self.state.zxid += 1
+        parent.children[name] = _Node(data)
+        parent.cversion += 1
+        self._fire(self.state.exists_watches, path, EventType.CREATED)
+        self._fire(self.state.child_watches, parent_path,
+                   EventType.CHILDREN_CHANGED)
+        return Err.OK
+
+    def load(self, nodes) -> None:
+        """Create every ``(path, data)`` of ``nodes`` in order, parents
+        first, as a client's ``create`` calls would: a bulk seed."""
+        for path, data in nodes:
+            err = self._create(path, data)
+            if err != Err.OK:
+                raise ValueError(f"cannot create {path}: error {err}")
+
     # -- op dispatch --
 
     def _handle(self, session: _Session, opcode: int,
@@ -283,20 +306,8 @@ class ZKTestServer:
 
         if opcode == OpCode.CREATE:
             path = buf.string()
-            data = buf.buffer() or b""
-            parent_path, name = self._split(path)
-            parent = self._find(parent_path)
-            if parent is None:
-                return Err.NONODE, b""
-            if name in parent.children:
-                return Err.NODEEXISTS, b""
-            self.state.zxid += 1
-            parent.children[name] = _Node(data)
-            parent.cversion += 1
-            self._fire(self.state.exists_watches, path, EventType.CREATED)
-            self._fire(self.state.child_watches, parent_path,
-                       EventType.CHILDREN_CHANGED)
-            return Err.OK, jute.string(path)
+            err = self._create(path, buf.buffer() or b"")
+            return err, jute.string(path) if err == Err.OK else b""
 
         if opcode == OpCode.SETDATA:
             path = buf.string()
@@ -333,11 +344,18 @@ class ZKTestServer:
 
 
 def main() -> None:
-    """Run standalone: python -m binder_torch.store.zk_testserver [port]."""
+    """Run standalone: ``python -m binder_torch.store.zk_testserver
+    [port] [tree.json]``, where ``tree.json`` holds ``[path, data]``
+    pairs, parents first, loaded before the server listens."""
+    import json
     import sys
 
     async def _run():
         server = ZKTestServer()
+        if len(sys.argv) > 2:
+            with open(sys.argv[2], encoding="utf-8") as f:
+                server.load((path, data.encode())
+                            for path, data in json.load(f))
         port = await server.start(
             port=int(sys.argv[1]) if len(sys.argv) > 1 else 2181)
         print(f"zk-testserver listening on 127.0.0.1:{port}", flush=True)

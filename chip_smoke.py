@@ -8,8 +8,10 @@ Run from the root of a checkout on a machine with a CUDA device:
 Phases, each under its own deadline; any failure reaps every process
 it started and exits non-zero without printing the ``ok`` line:
 
-1. device: require CUDA; print the card's name and power limit.
-2. native: build the port's native code from ``native/`` (the fast-path
+1. device: print the card's name and power limit (``nvidia-smi``);
+   then, beside phase 2, require CUDA.
+2. native: build the port's native code from ``native/`` with the
+   port's fixes (``fastio_build.FIXES``; the fast-path
    extension ``_binderfastio``, the ``mbalancer`` binary and the
    ``instance_adjust`` reconciler, through ``binder_torch.fastio_build``)
    and print the seconds each build took; check the extension loaded
@@ -17,7 +19,9 @@ it started and exits non-zero without printing the ``ok`` line:
    seeded query mix through one in-process ``BinderServer`` on the C
    lane and again on the Python lane and hold the replies byte for
    byte (multi-record answers by record set: the lanes rotate
-   independently).
+   independently).  The same ``build_all`` call also builds what the
+   check phase runs (``zlogcat``, ``dnsblast``, the ``-Werror``
+   builds, the ASan extension, the fuzzers), so the compilers overlap.
 3. serve: boot ``python -m binder_torch.main`` on a 100,000-name
    synthetic zone plus the shipped fixture and a 64-instance service,
    send a seeded A/PTR/SRV mix over UDP (concurrency 64) and TCP, and
@@ -25,9 +29,9 @@ it started and exits non-zero without printing the ``ok`` line:
    ``/metrics`` must show the C lane resident and serving.
 4. deploy: the production shape, all of it port code.  Render
    ``deploy/config/template`` with Triton metadata and layer on only
-   what a loopback run needs (each override printed); seed the same
-   zone into ``python -m binder_torch.store.zk_testserver`` through the
-   port's ZooKeeper client; boot the supervisor of a 4-worker
+   what a loopback run needs (each override printed); load the same
+   zone into ``python -m binder_torch.store.zk_testserver`` in bulk
+   from a file; boot the supervisor of a 4-worker
    reuseport group over it; stream the mix from 16 sockets plus TCP
    while a second process rewrites 64 host znodes at about 500/s and
    measures how soon all 16 probe sockets read each write back; SIGKILL
@@ -169,9 +173,9 @@ it started and exits non-zero without printing the ``ok`` line:
    violation at any size, mutation p50 at 1,000,000 at most 4.0x the
    10,000's in both probes, the rebuild at 1,000,000 within 250 ms of
    loop lag and missing no lookup; each probe's readings and peak RSS
-   are printed.  The two sizes of each latency ratio run back to back
-   with nothing else running; the verify probe at 100,000 runs beside
-   leg (c).  (c) an in-process ``BinderServer`` with the C zone
+   are printed.  The two sizes of each latency ratio run back to back,
+   the zone probe's chain of sizes beside the verify probe's and both
+   beside leg (c).  (c) an in-process ``BinderServer`` with the C zone
    resident and ``degradation`` on (clamp 5 s, cap 10 s): once the
    zone fill settles, a seeded sample of 2,000 hosts asked once; one of
    them mutated and the session expired, the sample asked during the
@@ -181,16 +185,29 @@ it started and exits non-zero without printing the ``ok`` line:
    and back: every answer right with the record's own TTL.  The C
    zone's share of the sample after each event is printed, and whether
    it comes back within 10 s.
-16. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
+16. check: the port's ``make check`` (``binder_torch.check``) on what
+   the native phase built, its three steps at once: the five shipped
+   artifacts with ``-Werror`` (the root ``Makefile``'s flags under the
+   compiler's own defaults); the fuzz smoke,
+   the four ASan/UBSan mutational fuzzers at 20,000 iterations and the
+   four coverage-guided ones at 5,000 over ``native/fuzz/corpus``, which
+   must stay byte for byte as it was; the reference's fast-path suites
+   and the port's in-process C-lane suites in pytest processes with
+   ``libasan`` preloaded against the ASan extension, every extension
+   loaded there the ASan build.  No warning, no sanitizer report, no
+   failed or skipped case.  It runs beside the aggregate and collective
+   phases, whose gates hold values, not times; its line is printed
+   before a failure is raised, so the steps that passed still show.
+17. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
    over the serve and deploy latencies and over a seeded 2**24 + 1
    batch, held against numpy.
-17. collective: the data-parallel mean over NCCL on the one card.
+18. collective: the data-parallel mean over NCCL on the one card.
 
 The port has no hand-written GPU kernel (the JAX package has no Pallas
 kernel to port; the native code is host code), so the kernel line is
 an empty list.  Before it, a ``{"native": ...}`` line carries the build
-seconds, the lane parity and the C lane's hits in each phase.  Phases 9
-to 15 print each of their departures from the reference smoke, and every
+seconds, the lane parity and the C lane's hits in each phase.  Phases 10
+to 16 print each of their departures from the reference smoke, and every
 phase's seconds are printed as it ends.  The last
 line is ``{"ok": true, "device": {...}}``.  ``--churn ZK_PORT
 DNS_PORT [--spread]`` is the deploy and topology phases'
@@ -215,6 +232,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -253,17 +271,25 @@ def log(msg: str) -> None:
 # -- phase 1: device --------------------------------------------------
 
 
+def card_reading() -> None:
+    """Print the card's name and power limit; fails at once on a host
+    without ``nvidia-smi``."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except OSError as e:
+        raise PhaseError(f"device: nvidia-smi did not run: {e}") from None
+    if smi.returncode != 0:
+        raise PhaseError(f"device: nvidia-smi failed: {smi.stderr}")
+    log("nvidia-smi: " + smi.stdout.strip().splitlines()[0])
+
+
 def device_phase():
     import torch
     if not torch.cuda.is_available():
         raise PhaseError("device: torch.cuda.is_available() is false")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=30)
-    if smi.returncode != 0:
-        raise PhaseError(f"device: nvidia-smi failed: {smi.stderr}")
-    log("nvidia-smi: " + smi.stdout.strip().splitlines()[0])
     return torch
 
 
@@ -413,20 +439,37 @@ def lane_parity(hosts: int = HOSTS, n_udp: int = PARITY_UDP,
     return report
 
 
-def native_phase(hosts: int = HOSTS):
-    """Build the port's native code, check the extension, and hold the
-    C lane against the Python lane; returns the report."""
+def check_builds():
+    """What the check phase runs: every shipped artifact, its
+    ``-Werror`` build, the ASan extension and the fuzzers."""
+    from binder_torch import fastio_build
+    return (tuple(fastio_build.ARTIFACTS) + fastio_build.WERROR
+            + ("extension.asan",) + fastio_build.FUZZERS
+            + fastio_build.COV_FUZZERS)
+
+
+def native_phase(hosts: int = HOSTS, also=()):
+    """Build the port's native code (and ``also``, in the same
+    ``build_all`` call), check the extension, and hold the C lane
+    against the Python lane; returns the report."""
     from binder_torch import fastio_build
     names = ("extension", "mbalancer", "instance_adjust")
     report = {"clean_checkout": {
         name: not os.path.exists(fastio_build.artifact_path(name))
         for name in names}}
     t0 = time.monotonic()
-    built = fastio_build.build_all(names)     # the compilers at once
+    try:                    # the compilers at once
+        built = fastio_build.build_all(names + tuple(also))
+    except fastio_build.NativeBuildError as e:
+        if not all(name in e.built for name in names):
+            raise
+        built = e.built     # a build of ``also`` is the check phase's
     report["build_wall_s"] = time.monotonic() - t0
-    report["build_s"] = {name: seconds
-                         for name, (_, seconds) in built.items()}
-    for name, (path, seconds) in built.items():
+    report["build_s"] = {name: built[name][1] for name in names}
+    report["also_build_s"] = {name: seconds for name, (_, seconds)
+                              in built.items() if name not in names}
+    for name in names:
+        path, seconds = built[name]
         log(f"native: {name} at {os.path.relpath(path, ROOT)}, "
             f"compiled in {seconds}s")
     from binder_torch import _binderfastio
@@ -441,6 +484,41 @@ def native_phase(hosts: int = HOSTS):
     report["functions"] = len(EXTENSION_FUNCTIONS)
     report["parity"] = lane_parity(hosts)
     log(json.dumps({"native_phase": report}))
+    return report
+
+
+# -- phase 16: check --------------------------------------------------
+
+
+def make_check_phase(build_s=None, iterations=None, asan_runs=None) -> dict:
+    """The port's ``make check`` on what the native phase built:
+    ``binder_torch.check``'s steps (b) to (d), at once (each reads only
+    what it was given): the ``-Werror`` build, the fuzz smoke at
+    ``iterations`` (mutational, coverage-guided; ``native/Makefile``'s
+    counts by default), and the suites of ``asan_runs`` (the check's by
+    default) under ASan.  ``build_s``: the compile seconds of each
+    artifact, from the native phase's ``build_all``."""
+    from binder_torch import check
+    fuzz, cov = iterations or (check.FUZZ_ITERATIONS, check.COV_ITERATIONS)
+    done = check.run({"werror": check.werror_step,
+                      "fuzz": lambda: check.fuzz_step(fuzz, cov),
+                      "asan": lambda: check.asan_step(asan_runs)},
+                     concurrent=True)
+    report = {"build_s": build_s,
+              "seconds": {name: s for name, (_, _, s) in done.items()},
+              "failed": [name for name, (_, e, _) in done.items() if e],
+              **{name: r for name, (r, _, _) in done.items()}}
+    if report["asan"] is not None:
+        for run in report["asan"].values():
+            run["loaded"] = sorted(run["loaded"]["modules"])
+        report["asan_passed"] = {
+            group: sum(r["passed"] for name, r in report["asan"].items()
+                       if name.startswith(group))
+            for group in ("reference", "port")}
+    log(json.dumps({"check": report}))
+    if report["failed"]:
+        raise PhaseError("check: " + "\n".join(
+            e for _, e, _ in done.values() if e))
     return report
 
 
@@ -998,26 +1076,37 @@ async def zk_connect(port: int):
     return client
 
 
-async def zk_create_all(port: int, items) -> None:
-    """Create every ``(path, data)``.  The client keeps at most
-    ``MAX_IN_FLIGHT`` requests outstanding and sends them in order, and
-    one connection answers in order, so a parent always exists before
-    its children."""
-    import asyncio
-    client = await zk_connect(port)
-    try:
-        await asyncio.gather(*(client.create(path, data)
-                               for path, data in items))
-    finally:
-        client.close()
-
-
 async def zk_set(port: int, path: str, data: bytes) -> None:
     client = await zk_connect(port)
     try:
         await client.mkdirp(path, data)
     finally:
         client.close()
+
+
+class ZooKeeper:
+    """The port's ZooKeeper server holding :func:`zone_nodes`, loaded
+    in bulk from a file before it listens: its port, log, znode count
+    and seed seconds (from its start to its first line)."""
+
+    def __init__(self, hosts: int, tmp: str):
+        self.log = os.path.join(tmp, "zk.log")
+        nodes = zone_nodes(hosts)
+        tree = os.path.join(tmp, "zk-tree.json")
+        with open(tree, "w") as f:
+            json.dump([[path, data.decode()] for path, data in nodes], f)
+        t0 = time.monotonic()
+        self.proc = spawn(["-m", "binder_torch.store.zk_testserver", "0",
+                           tree], self.log)
+        try:
+            self.port = int(wait_line(self.proc, self.log,
+                                      rb"listening on [\d.]+:(\d+)",
+                                      "ZooKeeper server", 60).group(1))
+        except BaseException:
+            reap(self.proc)
+            raise
+        self.seed_s = time.monotonic() - t0
+        self.znodes = len(nodes)
 
 
 def boot_peer(tmp: str):
@@ -1407,14 +1496,9 @@ def churn_cost_main(sizes) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_cost_") as tmp:
             procs = []
             try:
-                zk_log = os.path.join(tmp, "zk.log")
-                procs.append(spawn(["-m", "binder_torch.store.zk_testserver",
-                                    "0"], zk_log))
-                zk_port = int(wait_line(procs[0], zk_log,
-                                        rb"listening on [\d.]+:(\d+)",
-                                        "churn cost: ZooKeeper server",
-                                        60).group(1))
-                asyncio.run(zk_create_all(zk_port, zone_nodes(hosts)))
+                zk = ZooKeeper(hosts, tmp)
+                procs.append(zk.proc)
+                zk_port = zk.port
                 port = free_base(1)
                 procs.append(spawn(["-m", "binder_torch.main", "-f",
                                     topology_config(tmp, zk_port),
@@ -1514,26 +1598,17 @@ def deploy_phase(hosts: int = HOSTS, n_udp: int = DEPLOY_UDP,
     procs = []
     report = {"zone_names": hosts, "shards": shards}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_") as tmp:
+        zk = ZooKeeper(hosts, tmp)
+        procs.append(zk.proc)
         try:
-            zk_log = os.path.join(tmp, "zk.log")
-            zk = spawn(["-m", "binder_torch.store.zk_testserver", "0"],
-                       zk_log)
-            procs.append(zk)
-            zk_port = int(wait_line(zk, zk_log,
-                                    rb"listening on [\d.]+:(\d+)",
-                                    "deploy: ZooKeeper server",
-                                    60).group(1))
-            nodes = zone_nodes(hosts)
-            t0 = time.monotonic()
-            asyncio.run(zk_create_all(zk_port, nodes))
-            report["zk_znodes"] = len(nodes)
-            report["seed_s"] = time.monotonic() - t0
-            log(f"deploy: seeded {len(nodes)} znodes in "
-                f"{report['seed_s']}s")
+            report["zk_znodes"] = zk.znodes
+            report["seed_s"] = zk.seed_s
+            log(f"deploy: ZooKeeper server loaded {zk.znodes} znodes "
+                f"and listening after {zk.seed_s}s")
 
             peer, dc1_port = boot_peer(tmp)
             procs.append(peer)
-            config = deploy_config(tmp, zk_port, dc1_port, shards)
+            config = deploy_config(tmp, zk.port, dc1_port, shards)
 
             group_log = os.path.join(tmp, "group.log")
             t0 = time.monotonic()
@@ -1588,7 +1663,7 @@ def deploy_phase(hosts: int = HOSTS, n_udp: int = DEPLOY_UDP,
             # churn and a worker crash under the query stream
             churn = subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--churn",
-                 str(zk_port), str(port)], cwd=ROOT,
+                 str(zk.port), str(port)], cwd=ROOT,
                 stdin=subprocess.PIPE, stdout=subprocess.PIPE)
             procs.append(churn)
             if churn.stdout.readline().strip() != b"churn: ready":
@@ -1675,7 +1750,7 @@ def deploy_phase(hosts: int = HOSTS, n_udp: int = DEPLOY_UDP,
                                  "reference")
             respawns = shard_series(mport, "binder_shard_respawns")
             before = shard_series(mport, "binder_shard_requests")
-            asyncio.run(zk_set(zk_port, "/com/foo/postkill",
+            asyncio.run(zk_set(zk.port, "/com/foo/postkill",
                                host_json("10.203.0.1")))
             report["post_kill_write_s"] = wait_everywhere(
                 port, f"postkill.{DOMAIN}", "10.203.0.1", 64, 10.0)
@@ -1723,8 +1798,9 @@ def deploy_phase(hosts: int = HOSTS, n_udp: int = DEPLOY_UDP,
             report["errors"] = len(errors)
         except PhaseError:
             # what the processes said last, for the failure's reader
-            for name in ("zk.log", "dc1.log", "group.log"):
-                path = os.path.join(tmp, name)
+            for path in (zk.log, os.path.join(tmp, "dc1.log"),
+                         os.path.join(tmp, "group.log")):
+                name = os.path.basename(path)
                 if os.path.exists(path):
                     with open(path, "rb") as f:
                         tail = f.read()[-3000:].decode(errors="replace")
@@ -2120,22 +2196,13 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
         rundir = os.path.join(tmp, "run")
         state = os.path.join(rundir, "state")
         sockdir = os.path.join(rundir, "sockets")
-        zk_log = os.path.join(tmp, "zk.log")
         started = False
+        zk = ZooKeeper(hosts, tmp)
+        procs.append(zk.proc)
         try:
-            zk = spawn(["-m", "binder_torch.store.zk_testserver", "0"],
-                       zk_log)
-            procs.append(zk)
-            zk_port = int(wait_line(zk, zk_log,
-                                    rb"listening on [\d.]+:(\d+)",
-                                    "topology: ZooKeeper server",
-                                    60).group(1))
-            nodes = zone_nodes(hosts)
-            t0 = time.monotonic()
-            asyncio.run(zk_create_all(zk_port, nodes))
-            report["zk_znodes"] = len(nodes)
-            report["seed_s"] = time.monotonic() - t0
-            config = topology_config(tmp, zk_port)
+            report["zk_znodes"] = zk.znodes
+            report["seed_s"] = zk.seed_s
+            config = topology_config(tmp, zk.port)
             base = free_base(backends)
             report["base_port"] = base
             start = ["start", "-c", config, "-D", rundir, "-p", "0",
@@ -2199,7 +2266,7 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
 
             churn = subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--churn",
-                 str(zk_port), str(port), "--spread"], cwd=ROOT,
+                 str(zk.port), str(port), "--spread"], cwd=ROOT,
                 stdin=subprocess.PIPE, stdout=subprocess.PIPE)
             procs.append(churn)
             if churn.stdout.readline().strip() != b"churn: ready":
@@ -2313,7 +2380,7 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
 
             stats0 = balancer_stats(sockdir)
             before = native_reading(mport(victim))
-            asyncio.run(zk_set(zk_port, "/com/foo/churn/c00",
+            asyncio.run(zk_set(zk.port, "/com/foo/churn/c00",
                                host_json(POSTKILL_ADDR)))
             deadline = time.monotonic() + FRESH_LIMIT_S
             while True:
@@ -2394,7 +2461,7 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
                     for k in range(backends)]
             report["errors"] = len(errors)
         except PhaseError:
-            logs = [zk_log, os.path.join(rundir, "balancer.log")]
+            logs = [zk.log, os.path.join(rundir, "balancer.log")]
             if os.path.isdir(state):
                 logs += sorted(os.path.join(state, f)
                                for f in os.listdir(state)
@@ -2439,6 +2506,9 @@ SYSTEMD_BLAST_TEMPLATES = 4096
 #: the Python client's queries, every reply checked: half as many as
 #: dnsblast sends (``STREAM_CUTS``)
 SYSTEMD_UDP = SYSTEMD_BLAST // 2
+#: the fresh client addresses' stream after the restore, as topology's
+#: (``STREAM_CUTS``)
+SYSTEMD_FRESH_UDP = TOPOLOGY_FRESH_UDP
 SYSTEMD_CALL_S = 300.0
 #: the Python client's addresses on the installed stack, and those of
 #: each later check, so every check meets the balancer's client
@@ -2539,7 +2609,7 @@ def systemd_phase(hosts: int = HOSTS, n_blast: int = SYSTEMD_BLAST,
     with tempfile.TemporaryDirectory(prefix="chip_smoke_systemd_") as tmp:
         paths = systemd_install(tmp)
         sockdir = os.path.join(paths["run"], "sockets")
-        zk_log = os.path.join(tmp, "zk.log")
+        zk_log = os.path.join(tmp, "zk.log")     # ZooKeeper's log
         metadata = os.path.join(paths["opt"], "etc", "metadata.json")
         config_path = os.path.join(paths["opt"], "etc", "config.json")
         # the stand-in's watchers outlive the ``systemctl`` that started
@@ -2573,18 +2643,10 @@ def systemd_phase(hosts: int = HOSTS, n_blast: int = SYSTEMD_BLAST,
             adjust = binaries["instance_adjust"]
 
             # the store: the deploy phase's zone in the port's server
-            zk = spawn(["-m", "binder_torch.store.zk_testserver", "0"],
-                       zk_log)
-            procs.append(zk)
-            zk_port = int(wait_line(zk, zk_log,
-                                    rb"listening on [\d.]+:(\d+)",
-                                    "systemd: ZooKeeper server",
-                                    60).group(1))
-            nodes = zone_nodes(hosts)
-            t0 = time.monotonic()
-            asyncio.run(zk_create_all(zk_port, nodes))
-            report["zk_znodes"] = len(nodes)
-            report["seed_s"] = time.monotonic() - t0
+            zk = ZooKeeper(hosts, tmp)
+            procs.append(zk.proc)
+            report["zk_znodes"] = zk.znodes
+            report["seed_s"] = zk.seed_s
 
             # the stand-in on PATH, its rewrites printed
             dns_port = free_base(1)
@@ -2639,7 +2701,7 @@ def systemd_phase(hosts: int = HOSTS, n_blast: int = SYSTEMD_BLAST,
                 errors.append("binder-config.service rendered another "
                               "config than the template gives")
             write_overridden(rendered, {
-                "store.port": zk_port,
+                "store.port": zk.port,
                 "rrl": {"allowlist": ["127.0.0.0/8"]}}, config_path,
                 "systemd")
             # a hand-edited config: binder-config.service's condition
@@ -2750,7 +2812,7 @@ def systemd_phase(hosts: int = HOSTS, n_blast: int = SYSTEMD_BLAST,
                           f)
             put = subprocess.run(
                 [sys.executable, "-m", "binder_torch.cli.zkput", "-z",
-                 f"127.0.0.1:{zk_port}", fixture], cwd=ROOT,
+                 f"127.0.0.1:{zk.port}", fixture], cwd=ROOT,
                 capture_output=True, text=True, timeout=60)
             t0 = time.monotonic()
             if put.returncode != 0 or f"put {ZKPUT_PATH}" not in put.stdout:
@@ -2814,7 +2876,7 @@ def systemd_phase(hosts: int = HOSTS, n_blast: int = SYSTEMD_BLAST,
                         pid_running(inst[k]):
                     errors.append(f"scale down: {u} left behind")
 
-            t0 = time.monotonic()
+            t_up = time.monotonic()
             lines, _ = converge(instances, "scale up")
             errors += verb_errors(
                 "scale up", lines, [("daemon-reload", f"start {gone[0]}")]
@@ -2822,16 +2884,11 @@ def systemd_phase(hosts: int = HOSTS, n_blast: int = SYSTEMD_BLAST,
                 + ["restart binder-metric-ports.service"],
                 forbid=[f"{v} {u}" for u in units[:keep]
                         for v in ("start", "restart", "stop")])
-            deadline = t0 + TOPOLOGY_BOOT_DEADLINE_S
             for k in range(keep, instances):
                 inst[k] = shim_pid(paths, units[k])
-                wait_host(base + k, hosts - 1, hosts, deadline)
-                zone_sweep(base + k, hosts, deadline, indices=sample,
-                           what=f"systemd re-added instance {k}")
-            wait_balancer(sockdir, instances, instances, deadline)
-            report["scale_up_serving_s"] = time.monotonic() - t0
 
-            # 9. SIGKILL one instance, restore it by a converge
+            # 9. SIGKILL one instance while the re-added ones walk the
+            # zone, restore it by a converge; then all three must serve
             victim = 1
             old = inst[victim]
             os.kill(old, signal.SIGKILL)
@@ -2855,6 +2912,11 @@ def systemd_phase(hosts: int = HOSTS, n_blast: int = SYSTEMD_BLAST,
                 raise PhaseError(f"systemd: restored instance {new} runs "
                                  f"{line!r}")
             deadline = time.monotonic() + TOPOLOGY_BOOT_DEADLINE_S
+            for k in range(keep, instances):
+                wait_host(base + k, hosts - 1, hosts, deadline)
+                zone_sweep(base + k, hosts, deadline, indices=sample,
+                           what=f"systemd re-added instance {k}")
+            report["scale_up_serving_s"] = time.monotonic() - t_up
             wait_host(base + victim, hosts - 1, hosts, deadline)
             zone_sweep(base + victim, hosts, deadline, indices=sample,
                        what="systemd restored instance")
@@ -2863,7 +2925,8 @@ def systemd_phase(hosts: int = HOSTS, n_blast: int = SYSTEMD_BLAST,
                                  "serving_s": time.monotonic() - t0}
             stats0 = balancer_stats(sockdir)
             _, fresh_errors, _ = udp_flows(
-                dns_port, query_mix(rng, n_udp, hosts), FLOWS,
+                dns_port, query_mix(rng, min(n_udp, SYSTEMD_FRESH_UDP),
+                                    hosts), FLOWS,
                 CONCURRENCY, sources=RESTORE_CLIENTS)
             errors += fresh_errors
             stats = balancer_stats(sockdir)
@@ -5226,8 +5289,8 @@ ZONE_DEPARTURES = (
     "C lane: leg (c) holds a server at {lane} names with the C zone "
     "resident through a session rebuild and a degradation cycle; the "
     "reference probes have no C lane",
-    "order: the two sizes of each latency ratio run back to back with "
-    "nothing else running; the verify probe at its middle size runs "
+    "order: the two sizes of each latency ratio run back to back, the "
+    "zone probe's chain of sizes beside the verify probe's and both "
     "beside leg (c) in the smoke's own process (the bench runs one probe "
     "at a time)")
 
@@ -5637,12 +5700,14 @@ def zone_phase(control: int = ZONE_CONTROL, smoke: int = ZONE_SMOKE,
     the C zone lane through a session rebuild and a degradation cycle
     (leg c); returns the report.
 
-    Each probe size runs in a process of its own.  The sizes that a
-    latency ratio reads (the zone probe's control and smoke sizes, its
-    smallest and largest, and the verify probe's) run one at a time
-    with nothing else running, a ratio's two sizes back to back; then
-    the other verify sizes run beside leg (c), which runs in this
-    process."""
+    Each probe size runs in a process of its own, one at a time in two
+    chains side by side, a latency ratio's two sizes back to back in one
+    chain: the zone probe's (control and smoke sizes, then smallest and
+    largest) beside the verify probe's (smallest and largest, then the
+    others); leg (c) runs in this process meanwhile.  Runs with each
+    ratio's sizes alone read the same spread as runs beside three other
+    probes (PERF.md §6): a p50 of a few hundred mutations in a fresh
+    process moves that much by itself."""
     import concurrent.futures
     import gc
     t_phase = time.monotonic()
@@ -5655,33 +5720,37 @@ def zone_phase(control: int = ZONE_CONTROL, smoke: int = ZONE_SMOKE,
                  (ZONE_SCALE_MUTATIONS, max(500, min(5000, n // 10)))
                  for n in zone_sizes}
     verify_lo, verify_hi = min(verify_sizes), max(verify_sizes)
-    t_solo = time.monotonic()
-    ctl = run_probe("zone", control, 100, max(100, control // 4))
-    zone = {}
-    for n in dict.fromkeys((smoke, zone_sizes[0], zone_sizes[-1])):
-        zone[n] = run_probe("zone", n, *zone_args[n])
-    verify = {n: run_probe("verify", n, VERIFY_PROBE_MUTATIONS)
-              for n in dict.fromkeys((verify_lo, verify_hi))}
-    solo_s = time.monotonic() - t_solo
+    zone_chain = [("zone", control, 100, max(100, control // 4))] + [
+        ("zone", n, *zone_args[n])
+        for n in dict.fromkeys((smoke, zone_sizes[0], zone_sizes[-1]))]
+    verify_chain = [("verify", n, VERIFY_PROBE_MUTATIONS)
+                    for n in dict.fromkeys((verify_lo, verify_hi))]
     rest = [("zone", n, *zone_args[n]) for n in zone_sizes
-            if n not in zone]
+            if n not in (smoke, zone_sizes[0], zone_sizes[-1])]
     rest += [("verify", n, VERIFY_PROBE_MUTATIONS) for n in verify_sizes
-             if n not in verify]
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        beside = pool.submit(lambda: [run_probe(*r) for r in rest])
+             if n not in (verify_lo, verify_hi)]
+    zone, verify = {}, {}
+    t_probes = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        chains = [pool.submit(lambda c: [run_probe(*r) for r in c], c)
+                  for c in (zone_chain, verify_chain + rest)]
         t_lane = time.monotonic()
         lane = asyncio.run(zone_lane_run(lane_hosts, lane_sample,
                                          recover_s))
         lane["phase_s"] = time.monotonic() - t_lane
-        for (kind, n, *_), r in zip(rest, beside.result()):
-            (zone if kind == "zone" else verify)[n] = r
+        runs = chains[0].result() + chains[1].result()
+    probes_s = time.monotonic() - t_probes
+    ctl = runs[0]
+    for (kind, n, *_), r in zip(zone_chain[1:] + verify_chain + rest,
+                                runs[1:]):
+        (zone if kind == "zone" else verify)[n] = r
     gc.collect()
     smoke_leg = zone_smoke_leg(ctl, zone[smoke])
     scale_leg = zone_scale_leg(zone, verify)
     errors = (smoke_leg.pop("errors") + scale_leg.pop("errors")
               + lane.pop("errors"))
     report = {"smoke": smoke_leg, "scale": scale_leg["readings"],
-              "lane": lane, "departures": departures, "solo_s": solo_s,
+              "lane": lane, "departures": departures, "probes_s": probes_s,
               "phase_s": time.monotonic() - t_phase,
               "errors": len(errors)}
     log(json.dumps({"zone": report}))
@@ -5691,7 +5760,7 @@ def zone_phase(control: int = ZONE_CONTROL, smoke: int = ZONE_SMOKE,
     return report
 
 
-# -- phase 16: aggregate ----------------------------------------------
+# -- phase 17: aggregate ----------------------------------------------
 
 
 def reference_percentile(ordered: np.ndarray, q: float) -> np.float32:
@@ -5767,7 +5836,7 @@ def aggregate_phase(torch, latencies, sharded) -> None:
     hold_aggregate(torch, aggregate, big, "lognormal 2**24+1")
 
 
-# -- phase 17: collective ---------------------------------------------
+# -- phase 18: collective ---------------------------------------------
 
 
 def collective_phase() -> None:
@@ -5787,14 +5856,16 @@ def collective_phase() -> None:
         raise PhaseError(f"collective: mean {mean!r} != {expect!r}")
 
 
-#: streams cut so that the zone phase fits in the smoke's 600 s: each
-#: duplicates a stream of an earlier phase, and none cuts a zone, the
-#: churn's rate or a gate
+#: streams cut so that the zone and check phases fit in the smoke's
+#: 600 s: each duplicates a stream of an earlier phase, and none cuts a
+#: zone, the churn's rate or a gate
 STREAM_CUTS = (
     "deploy: the 16-socket UDP stream is 30,000 queries, not 60,000",
     "topology: the 16-address UDP stream is 30,000 queries, not 60,000",
     "systemd: the Python client sends 30,000 UDP queries, not 60,000 "
-    "(dnsblast keeps its 60,000)")
+    "(dnsblast keeps its 60,000)",
+    "systemd: the fresh addresses' stream after the restore is 2,000 "
+    "queries, as topology's, not 30,000")
 
 
 def main() -> int:
@@ -5823,8 +5894,13 @@ def main() -> int:
             log(json.dumps({"phase_seconds": seconds}))
 
     try:
-        torch = timed("device", device_phase)
-        built = timed("native", native_phase)
+        card_reading()
+        # the device check beside the native builds, so the seconds of
+        # importing torch and starting CUDA overlap the compilers'
+        with ThreadPoolExecutor(1) as pool:
+            device = pool.submit(timed, "device", device_phase)
+            built = timed("native", native_phase, also=check_builds())
+            torch = device.result()
         latencies = timed("serve", serve_phase, native=native)
         sharded = timed("deploy", deploy_phase, native=native)
         timed("balancer", balancer_phase, native=native)
@@ -5837,8 +5913,14 @@ def main() -> int:
         timed("verify", verify_phase, native=native)
         timed("tcp", tcp_phase, native=native)
         timed("zone", zone_phase, native=native)
-        timed("aggregate", aggregate_phase, torch, latencies, sharded)
-        timed("collective", collective_phase)
+        # the port's make check beside the device phases, which gate
+        # on values, not on time
+        with ThreadPoolExecutor(1) as pool:
+            checked = pool.submit(timed, "check", make_check_phase,
+                                  built["also_build_s"])
+            timed("aggregate", aggregate_phase, torch, latencies, sharded)
+            timed("collective", collective_phase)
+            checked.result()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -13,6 +13,10 @@ zk_testserver}`` against ``binder_tpu.store``'s.
   the reference's ``ZKTestServer`` and the reference's client over the
   port's server, fed one seeded tree and one mutation script, hold the
   same names, records and reverse index.
+- Bulk seed: the port's server started with a tree file
+  (``python -m binder_torch.store.zk_testserver 0 tree.json``) holds
+  the tree the reference's server holds once a client has created the
+  same znodes one by one: data, versions, child versions and zxid.
 - Session behaviour, run on both packages and compared: a connection
   drop resumes the same session and re-arms the watches; an expired
   session comes back as a new session with a rebuilt mirror; two
@@ -20,8 +24,12 @@ zk_testserver}`` against ``binder_tpu.store``'s.
 """
 import asyncio
 import json
+import os
 import random
+import re
 import struct
+import subprocess
+import sys
 
 import pytest
 
@@ -322,6 +330,62 @@ def test_cross_wire_mirrors_hold_the_same_zone():
     assert seeded["reverse"]["2001:db8::7"] == "v6.foo.com"
     assert mutated["reverse"]["10.200.0.1"] == "h0000.r0.zs.foo.com"
     assert mutated["reverse"]["10.200.0.3"] == "junk.foo.com"
+
+
+def tree_view(node):
+    return (node.data, node.version, node.cversion,
+            {name: tree_view(kid) for name, kid in node.children.items()})
+
+
+def creation_order(tree):
+    """Every znode of ``tree`` and its parents, parents first."""
+    nodes = {}
+    for path, data in tree.items():
+        parts = path.split("/")[1:]
+        for d in range(1, len(parts)):
+            nodes.setdefault("/" + "/".join(parts[:d]), b"")
+        nodes[path] = data
+    return sorted(nodes.items(), key=lambda kv: kv[0].count("/"))
+
+
+def test_bulk_load_holds_what_creates_make(tmp_path):
+    nodes = creation_order(seeded_tree())
+    tree_file = tmp_path / "tree.json"
+    tree_file.write_text(json.dumps([[p, d.decode()] for p, d in nodes]))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "binder_torch.store.zk_testserver", "0",
+         str(tree_file)], cwd=root, stdout=subprocess.PIPE, text=True)
+
+    async def run():
+        ref = ref_srv.ZKTestServer()
+        await ref.start()
+        w = await writer_for("port", ref.port)
+        for path, data in nodes:
+            await w.create(path, data)
+        w.close()
+        await ref.stop()
+        # the port's server over the file: a mirror holds the zone
+        port = int(re.search(r":(\d+)$", proc.stdout.readline()).group(1))
+        c = port_zk.ZKClient(address="127.0.0.1", port=port)
+        cache = PortCache(c, DOMAIN)
+        c.start()
+        assert await wait_for(
+            lambda: len(cache.rev_lookup) == len(seeded_tree()) - 2)
+        c.close()
+        return ref.state
+
+    try:
+        ref_state = asyncio.run(run())
+    finally:
+        proc.kill()
+        proc.wait()
+    loaded = port_srv.ZKTestServer()
+    loaded.load(nodes)
+    assert tree_view(loaded.state.root) == tree_view(ref_state.root)
+    assert loaded.state.zxid == ref_state.zxid == len(nodes)
+    with pytest.raises(ValueError, match="cannot create /com/foo/svc"):
+        loaded.load(nodes[2:3])
 
 
 # -- session behaviour, both packages ---------------------------------
