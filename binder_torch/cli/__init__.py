@@ -10,7 +10,14 @@ output and exit codes, run as ``python -m binder_torch.cli.<name>``:
   ``etc/config.json`` from deployment metadata;
 - ``libresolv_probe`` (``tools/libresolv_probe.py``): asks through
   glibc's resolver and prints what ``ns_parserr`` read, with one added
-  option, ``--server HOST:PORT``.
+  option, ``--server HOST:PORT``;
+- ``conformance_tiers`` (``tools/conformance_tiers.py``): which of the
+  port's independent-conformance tiers ran, from a junit report.
+
+``resolv_ns`` has no counterpart there: it runs a command in a private
+network and mount namespace whose resolv.conf names 127.0.0.1:53, so
+that glibc's stub resolver (``getent``) reaches a server there without
+a change to the host.
 
 ``bin/bstat`` and ``bin/balstat`` import no package (they read
 ``/status`` over HTTP and ``.balancer.stats`` over a socket) and serve

@@ -202,13 +202,30 @@ it started and exits non-zero without printing the ``ok`` line:
    over the serve and deploy latencies and over a seeded 2**24 + 1
    batch, held against numpy.
 18. collective: the data-parallel mean over NCCL on the one card.
+19. libc: the getent tier of ``make ci`` (``tests/test_conformance.py``
+   ``TestLibcConformance``) at the serve phase's zone, beside check,
+   aggregate and collective.  ``python -m binder_torch.cli.resolv_ns``
+   makes a private network and mount namespace (loopback up,
+   192.0.2.1/32 on ``lo`` for ``AI_ADDRCONFIG``, a ``resolv.conf`` that
+   names 127.0.0.1:53 with ``edns0``, ``hosts: files dns``, no host
+   ``nscd``) and runs ``chip_smoke.py --libc-leg`` in it: ``python -m
+   binder_torch.main`` on port 53 there, and, once its zone fill has
+   settled, a seeded sample of 2,000 hosts through ``getent ahostsv4``
+   and ``getent hosts`` by name and by address, ``libresolv_probe``
+   without ``--server`` (A with TTL 30, PTR, the fixture's SRV with its
+   A additionals, OPT 1232), and a name the zone does not hold.  Gates:
+   every answer the zone's, the unknown name not found, the files in
+   the namespace the ones bound, the C lane serving, the server up, the
+   host's ``/etc/resolv.conf`` and ``/etc/nsswitch.conf`` the same
+   sha256 and mtime after as before, no process left.  A step of the
+   namespace that cannot be made fails the phase.
 
 The port has no hand-written GPU kernel (the JAX package has no Pallas
 kernel to port; the native code is host code), so the kernel line is
 an empty list.  Before it, a ``{"native": ...}`` line carries the build
 seconds, the lane parity and the C lane's hits in each phase.  Phases 10
-to 16 print each of their departures from the reference smoke, and every
-phase's seconds are printed as it ends.  The last
+to 16 and 19 print each of their departures from the reference smoke,
+and every phase's seconds are printed as it ends.  The last
 line is ``{"ok": true, "device": {...}}``.  ``--churn ZK_PORT
 DNS_PORT [--spread]`` is the deploy and topology phases'
 churn process, started by the script itself; ``--churn-cost N[,N...]``
@@ -219,6 +236,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import random
@@ -574,11 +592,12 @@ def write_config(tmp: str, hosts: int, *, name: str = "config",
 
 
 def boot_server(config_path: str, log_path: str,
-                what: str = "serve: server"):
-    """Start ``python -m binder_torch.main`` on ``config_path``; return
-    the process and its UDP port once it serves."""
-    proc = spawn(["-m", "binder_torch.main", "-f", config_path, "-p", "0"],
-                 log_path)
+                what: str = "serve: server", port: int = 0):
+    """Start ``python -m binder_torch.main`` on ``config_path`` (on
+    ``port``, an ephemeral one by default); return the process and its
+    UDP port once it serves."""
+    proc = spawn(["-m", "binder_torch.main", "-f", config_path, "-p",
+                  str(port)], log_path)
     m = wait_line(proc, log_path, rb"UDP DNS service started on [\d.]+:(\d+)",
                   what, BOOT_DEADLINE_S)
     return proc, int(m.group(1))
@@ -5129,59 +5148,70 @@ def tcp_leg(port: int, mport: int, name: str) -> dict:
     return {"tcp_before": s0, "tcp_after": status["tcp"], "errors": errors}
 
 
-def probe(port: int, name: str, qtype: str):
-    """``binder_torch.cli.libresolv_probe --server`` for one question:
-    glibc's parse of the server's answer."""
+def probe(server, name: str, qtype: str):
+    """``binder_torch.cli.libresolv_probe`` for one question: glibc's
+    parse of the answer of ``server`` (``HOST:PORT``, through
+    ``--server``), or of the resolver ``/etc/resolv.conf`` names where
+    ``server`` is None."""
+    route = ["--server", server] if server else []
     out = subprocess.run(
-        [sys.executable, "-m", "binder_torch.cli.libresolv_probe",
-         "--server", f"127.0.0.1:{port}", name, qtype],
-        cwd=ROOT, capture_output=True, timeout=30)
+        [sys.executable, "-m", "binder_torch.cli.libresolv_probe", *route,
+         name, qtype], cwd=ROOT, capture_output=True, timeout=30)
     if out.returncode != 0:
-        raise PhaseError(f"conformance: the probe exited {out.returncode} "
-                         f"for {name} {qtype}: "
+        raise PhaseError(f"libresolv_probe exited {out.returncode} for "
+                         f"{name} {qtype}: "
                          + out.stderr.decode(errors="replace")[-300:])
     return json.loads(out.stdout)
 
 
-def conformance_leg(port: int, hosts: int) -> dict:
-    """glibc's resolver against the server: a host's A and its TTL, its
-    PTR, the fixture's SRV with its A additionals, and the OPT echo."""
+def libresolv_leg(server, hosts: int) -> dict:
+    """glibc's resolver against ``server`` (see ``probe``): a host's A
+    and its TTL, its PTR, the fixture's SRV with its A additionals, and
+    the OPT echo of each; ``right`` names the questions read right."""
     from binder_torch.dns import reverse_name_for_ip
-    errors = []
     racks = max(1, min(1024, hosts // 512))
     i = random.Random(SEED + 9).randrange(hosts)
     name, addr = host_name(i, racks), host_addr(i)
     rev = reverse_name_for_ip(addr)
-    got = {"a": probe(port, name, "A"), "ptr": probe(port, rev, "PTR"),
-           "srv": probe(port, FIXTURE_SRV[0], "SRV")}
+    got = {"a": probe(server, name, "A"), "ptr": probe(server, rev, "PTR"),
+           "srv": probe(server, FIXTURE_SRV[0], "SRV")}
+    bad = {k: [] for k in got}
     a = got["a"]["answers"]
     if [(r["name"], r["type"], r["address"], r["ttl"]) for r in a] != [
             (name, 1, addr, HOST_TTL)]:
-        errors.append(f"A {name}: glibc read {a}")
+        bad["a"].append(f"A {name}: glibc read {a}")
     p = got["ptr"]["answers"]
     if [(r["name"], r["type"], r["target"]) for r in p] != [
             (rev, 12, name)]:
-        errors.append(f"PTR {rev}: glibc read {p}")
+        bad["ptr"].append(f"PTR {rev}: glibc read {p}")
     srv_name, srv_port, members = FIXTURE_SRV
     s = got["srv"]["answers"]
     if (sorted((r["type"], r["port"], r["priority"], r["target"])
                for r in s)
             != sorted((33, srv_port, 0, t) for t in members)
             or got["srv"]["ancount"] != len(members)):
-        errors.append(f"SRV {srv_name}: glibc read {s}")
+        bad["srv"].append(f"SRV {srv_name}: glibc read {s}")
     adds = {r["name"]: r["address"] for r in got["srv"]["additional"]
             if r["type"] == 1}
     if adds != members:
-        errors.append(f"SRV {srv_name} additionals: glibc read "
-                      f"{got['srv']['additional']}")
+        bad["srv"].append(f"SRV {srv_name} additionals: glibc read "
+                          f"{got['srv']['additional']}")
     for k, r in got.items():
         if r["opt"] != {"payload": 1232}:
-            errors.append(f"{k}: OPT echo {r['opt']}, want payload 1232")
-    golden = golden_errors()
-    errors += golden
+            bad[k].append(f"{k}: OPT echo {r['opt']}, want payload 1232")
     return {"probed": {"a": name, "ptr": rev, "srv": srv_name},
-            "glibc": got, "golden_vectors": len(GOLDEN),
-            "golden_errors": len(golden), "errors": errors}
+            "glibc": got, "right": [k for k, e in bad.items() if not e],
+            "errors": [e for es in bad.values() for e in es]}
+
+
+def conformance_leg(port: int, hosts: int) -> dict:
+    """glibc's resolver against the server on ``port``
+    (``libresolv_leg``), then the RFC golden vectors."""
+    report = libresolv_leg(f"127.0.0.1:{port}", hosts)
+    golden = golden_errors()
+    report["errors"] += golden
+    report.update(golden_vectors=len(GOLDEN), golden_errors=len(golden))
+    return report
 
 
 def tcp_phase(hosts: int = HOSTS, native=None) -> dict:
@@ -5760,6 +5790,237 @@ def zone_phase(control: int = ZONE_CONTROL, smoke: int = ZONE_SMOKE,
     return report
 
 
+# -- phase 19: libc ---------------------------------------------------
+
+#: the getent tier of ``tests/test_conformance.py`` (``TestLibcConformance``)
+#: at the serve phase's zone: a seeded sample of hosts, asked ``LIBC_BATCH``
+#: keys to a ``getent`` call, ``LIBC_CALLS`` calls at once (one after
+#: another, 2,000 hosts took 17.3 s of ``getent`` on the H100 host)
+LIBC_SAMPLE = 2_000
+LIBC_BATCH = 200
+LIBC_CALLS = 5
+LIBC_UNKNOWN = f"nosuch-libc.zs.{DOMAIN}"
+LIBC_DNS_PORT = 53
+LIBC_GETENT_S = 120.0
+LIBC_DEADLINE_S = 600.0
+LIBC_HOST_FILES = ("/etc/resolv.conf", "/etc/nsswitch.conf")
+LIBC_DEPARTURES = (
+    "route: a private network and mount namespace "
+    "(binder_torch.cli.resolv_ns), not the host's resolv.conf and port "
+    "53: the server binds 127.0.0.1:53 of the namespace and glibc reads "
+    "a resolv.conf bound over the host's there",
+    "rrl: loopback allowlisted, as in every phase of this smoke: glibc "
+    "asks from 127.0.0.1 alone, five getent calls at once")
+
+
+def getent(*args: str):
+    """``getent`` (glibc's NSS) with ``args``: its exit code and
+    output."""
+    out = subprocess.run(["getent", *args], capture_output=True,
+                         timeout=LIBC_GETENT_S)
+    return out.returncode, out.stdout.decode(errors="replace")
+
+
+def getent_map(database: str, keys, key_field: int, value_field: int):
+    """``getent database`` over ``keys``, ``LIBC_BATCH`` a call and
+    ``LIBC_CALLS`` calls at once: what each output line's field
+    ``key_field`` maps to, and each call's exit code.  ``ahosts`` and
+    ``ahostsv4`` print three lines a key, the first with the canonical
+    name."""
+    got = {}
+    with ThreadPoolExecutor(LIBC_CALLS) as pool:
+        done = list(pool.map(lambda k: getent(database,
+                                              *keys[k:k + LIBC_BATCH]),
+                             range(0, len(keys), LIBC_BATCH)))
+    for _, text in done:
+        for line in text.splitlines():
+            fields = line.split()
+            if len(fields) > max(key_field, value_field) and (
+                    not database.startswith("ahosts")
+                    or fields[1] == "STREAM"):
+                got.setdefault(fields[key_field], fields[value_field])
+    return got, [rc for rc, _ in done]
+
+
+def namespace_errors() -> list:
+    """Errors unless this process runs under ``resolv_ns`` with its
+    resolv.conf and nsswitch.conf in place."""
+    from binder_torch.cli import resolv_ns
+    errors = []
+    if "RESOLV_NS" not in os.environ:
+        errors.append("not run under binder_torch.cli.resolv_ns")
+    try:
+        with open(resolv_ns.RESOLV_PATH) as f:
+            conf = f.read()
+        with open(resolv_ns.NSSWITCH_PATH) as f:
+            nss = resolv_ns.hosts_line(f.read())
+    except OSError as e:
+        return errors + [f"namespace files: {e}"]
+    if conf != resolv_ns.RESOLV_CONF:
+        errors.append(f"resolv.conf here reads {conf!r}")
+    if nss != resolv_ns.NSSWITCH_HOSTS:
+        errors.append(f"nsswitch.conf here reads {nss!r}")
+    return errors
+
+
+def libc_leg(hosts: int, sample: int, wrong=None) -> dict:
+    """Inside ``resolv_ns``: a server on 127.0.0.1:53 at ``hosts``
+    names; ``sample`` of its hosts through ``getent ahostsv4``,
+    ``getent hosts`` (name and address), the resolv.conf route of
+    ``libresolv_probe`` and one unknown name.  ``wrong``: the index in
+    the sample of a host whose address is taken to be another (a planted
+    fault for the gate to catch)."""
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(1))
+    errors = namespace_errors()
+    racks = max(1, min(1024, hosts // 512))
+    chosen = random.Random(SEED + 11).sample(range(hosts), sample)
+    names = [host_name(i, racks) for i in chosen]
+    addrs = [host_addr(i) for i in chosen]
+    if wrong is not None:
+        addrs[wrong] = "10.255.255.254"
+    zone = dict(zip(names, addrs))
+    proc = server_pid = None
+    report = {"hosts": hosts, "sample": sample}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_libc_") as tmp:
+        log_path = os.path.join(tmp, "server.log")
+        try:
+            t0 = time.monotonic()
+            proc, port = boot_server(write_config(tmp, hosts), log_path,
+                                     "libc: server", port=LIBC_DNS_PORT)
+            server_pid = proc.pid
+            report["boot_s"] = time.monotonic() - t0
+            mport = metrics_port(log_path)
+            report.update(settle_zone(mport, "libc"))
+            before = native_reading(mport)
+            t1 = time.monotonic()
+            report["queries"] = {}
+            # kind -> (database, keys, expected, key field, value field)
+            for kind, (db, keys, want, kf, vf) in {
+                    "ahostsv4": ("ahostsv4", names, zone, 2, 0),
+                    "hosts": ("hosts", names, zone, 1, 0),
+                    "hosts_reverse": ("hosts", addrs,
+                                      dict(zip(addrs, names)), 0, 1),
+            }.items():
+                got, rcs = getent_map(db, keys, kf, vf)
+                right = sum(got.get(k) == v for k, v in want.items())
+                report["queries"][kind] = {"asked": len(want),
+                                           "right": right, "rcs": rcs}
+                for k, v in want.items():
+                    if got.get(k) != v:
+                        errors.append(f"getent {kind} {k}: glibc read "
+                                      f"{got.get(k)}, the zone says {v}")
+            report["getent_s"] = time.monotonic() - t1
+            unknown = {db: getent(db, LIBC_UNKNOWN)
+                       for db in ("ahostsv4", "hosts")}
+            report["unknown"] = {db: rc for db, (rc, _) in unknown.items()}
+            for db, (rc, text) in unknown.items():
+                if rc != 2 or text:
+                    errors.append(f"getent {db} {LIBC_UNKNOWN}: exit {rc}, "
+                                  f"{text!r}; glibc must say not found")
+            t2 = time.monotonic()
+            resolv = libresolv_leg(None, hosts)
+            report["libresolv_s"] = time.monotonic() - t2
+            errors += resolv.pop("errors")
+            report["libresolv"] = resolv
+            after = native_reading(mport)
+            report["c_lane"] = native_delta(before, after)
+            errors += native_gate("libc", before, after)
+            if proc.poll() is not None:
+                errors.append(f"server exited {proc.returncode}")
+        except PhaseError as e:
+            errors.append(str(e))
+            if os.path.exists(log_path):
+                tail = read_bytes(log_path)[-3000:].decode(errors="replace")
+                log(f"--- libc server.log (last 3000 bytes) ---\n{tail}")
+        finally:
+            reap(proc)
+    report.update(pids=[os.getpid(), server_pid],
+                  left=descendants(os.getpid()), errors=errors,
+                  namespace=json.loads(os.environ.get("RESOLV_NS", "null")))
+    return report
+
+
+def libc_leg_main(spec: str) -> int:
+    """``chip_smoke.py --libc-leg SPEC``: ``libc_leg(**SPEC)``, printed
+    as one ``{"libc_leg": ...}`` line."""
+    report = libc_leg(**json.loads(spec))
+    log(json.dumps({"libc_leg": report}))
+    return 1 if report["errors"] or report["left"] else 0
+
+
+def file_stamp(path: str):
+    """The sha256 and mtime of ``path``, or the error reading it."""
+    try:
+        with open(path, "rb") as f:
+            return [hashlib.sha256(f.read()).hexdigest(),
+                    os.stat(path).st_mtime_ns]
+    except OSError as e:
+        return [f"unreadable: {e}", None]
+
+
+def libc_phase(hosts: int = HOSTS, sample: int = LIBC_SAMPLE,
+               native=None, wrong=None) -> dict:
+    """The getent tier on the port: ``libc_leg`` under ``python -m
+    binder_torch.cli.resolv_ns``, judged from its one JSON line, with the
+    host's ``/etc/resolv.conf`` and ``/etc/nsswitch.conf`` the same
+    after as before."""
+    from binder_torch.cli import resolv_ns
+    t0 = time.monotonic()
+    for d in LIBC_DEPARTURES:
+        log("libc departure: " + d)
+    stamps = {p: file_stamp(p) for p in LIBC_HOST_FILES}
+    with open(resolv_ns.NSSWITCH_PATH) as f:
+        host_hosts = resolv_ns.hosts_line(f.read())
+    spec = json.dumps({"hosts": hosts, "sample": sample, "wrong": wrong})
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "binder_torch.cli.resolv_ns", "--",
+         sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--libc-leg", spec],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out, err = proc.communicate(timeout=LIBC_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        proc.terminate()        # resolv_ns hands it to the leg
+        try:
+            out, err = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    said = out.decode(errors="replace")
+    lines = [x for x in said.splitlines() if x.startswith('{"libc_leg": ')]
+    errors = []
+    leg = json.loads(lines[-1])["libc_leg"] if lines else None
+    if leg is None:
+        errors.append(f"the leg printed no report (resolv_ns exited "
+                      f"{proc.returncode}): "
+                      + err.decode(errors="replace")[-1500:])
+        leg = {"errors": [], "left": [], "pids": []}
+    elif proc.returncode != 0 and not leg["errors"]:
+        errors.append(f"resolv_ns exited {proc.returncode}")
+    errors += leg["errors"]
+    changed = [p for p in LIBC_HOST_FILES if file_stamp(p) != stamps[p]]
+    errors += [f"the host's {p} changed" for p in changed]
+    left = leg["left"] + [p for p in leg["pids"] if p and pid_running(p)]
+    report = {k: v for k, v in leg.items()
+              if k not in ("errors", "left", "pids")}
+    report.update(
+        route=(report.get("namespace") or {}).get("route"),
+        glibc=os.confstr("CS_GNU_LIBC_VERSION"), host_hosts=host_hosts,
+        host_nscd=[d for d in resolv_ns.NSCD_DIRS if os.path.isdir(d)],
+        host_files=stamps, host_files_changed=changed,
+        phase_s=time.monotonic() - t0, errors=len(errors),
+        departures=list(LIBC_DEPARTURES))
+    log(json.dumps({"libc": report}))
+    if native is not None and "c_lane" in report:
+        native["libc"] = report["c_lane"]
+    tail = ("\n".join(x for x in said.splitlines() if x not in lines)
+            + err.decode(errors="replace"))[-3000:].strip()
+    if errors and tail:
+        log(f"--- libc leg output ---\n{tail}")
+    check_phase("libc", errors, left)
+    return report
+
+
 # -- phase 17: aggregate ----------------------------------------------
 
 
@@ -5876,6 +6137,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--churn-cost"]:
         return churn_cost_main([int(n) for n in sys.argv[2].split(",")])
+    if sys.argv[1:2] == ["--libc-leg"]:
+        return libc_leg_main(sys.argv[2])
     if sys.argv[1:2] == ["--churn"]:
         return churn_main(int(sys.argv[2]), int(sys.argv[3]),
                           CHURN_CLIENTS if sys.argv[4:5] == ["--spread"]
@@ -5913,14 +6176,16 @@ def main() -> int:
         timed("verify", verify_phase, native=native)
         timed("tcp", tcp_phase, native=native)
         timed("zone", zone_phase, native=native)
-        # the port's make check beside the device phases, which gate
-        # on values, not on time
-        with ThreadPoolExecutor(1) as pool:
+        # the port's make check and the getent tier beside the device
+        # phases, which gate on values, not on time
+        with ThreadPoolExecutor(2) as pool:
             checked = pool.submit(timed, "check", make_check_phase,
                                   built["also_build_s"])
+            libc = pool.submit(timed, "libc", libc_phase, native=native)
             timed("aggregate", aggregate_phase, torch, latencies, sharded)
             timed("collective", collective_phase)
             checked.result()
+            libc.result()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

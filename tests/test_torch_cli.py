@@ -193,8 +193,9 @@ def test_config_render_renders_like_the_reference(tmp_path):
 
 def test_cli_modules_name_no_reference():
     files = glob.glob(os.path.join(ROOT, "binder_torch", "cli", "*.py"))
-    # __init__, bdig, zkput, config_render and libresolv_probe
-    assert len(files) == 5
+    # __init__, bdig, zkput, config_render, libresolv_probe, resolv_ns
+    # and conformance_tiers
+    assert len(files) == 7
     for path in files:
         with open(path) as f:
             text = f.read()

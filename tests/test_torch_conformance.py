@@ -14,12 +14,17 @@ The port's side of the reference's ``tests/test_conformance.py``:
 3. ``getent`` (gethostbyname / gethostbyaddr) against a port server on
    127.0.0.1:53: it cannot be pointed at another port, so it stays
    behind ``BINDER_LIBC_CONFORMANCE=1`` and root, as in the reference.
+   ``tests/test_torch_libc_ns.py`` runs it on both packages in a
+   private network and mount namespace instead.
+4. dig(1), ``TestDigConformance``'s exchanges against a port server,
+   where dig is installed.
 """
 import asyncio
 import ctypes
 import errno
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -266,3 +271,39 @@ def test_getent_a_and_ptr():
         if e.errno == errno.EADDRINUSE:
             pytest.skip("127.0.0.1:53 already bound on this host")
         raise
+
+
+# -- 4. dig(1), the reference's own conformance client ------------------
+
+
+def test_dig_exchanges():
+    """``TestDigConformance``'s exchanges against a port server."""
+    dig = shutil.which("dig")
+    if dig is None:
+        pytest.skip("dig(1) not installed")
+
+    async def run(server):
+        port = server.udp_port
+        loop = asyncio.get_running_loop()
+
+        def digq(*args):
+            return subprocess.run(
+                [dig, "@127.0.0.1", "-p", str(port), "+time=3",
+                 "+tries=1", *args],
+                capture_output=True, text=True, timeout=15).stdout
+
+        out = await loop.run_in_executor(None, digq, "web.foo.com", "A")
+        assert "status: NOERROR" in out and "10.7.7.7" in out
+        out = await loop.run_in_executor(
+            None, digq, "_pg._tcp.svc.foo.com", "SRV")
+        assert "status: NOERROR" in out and "5432" in out \
+            and "lb0.svc.foo.com" in out
+        out = await loop.run_in_executor(None, digq, "-x", "10.7.7.7")
+        assert "web.foo.com" in out
+        out = await loop.run_in_executor(None, digq, "other.example", "A")
+        assert "status: REFUSED" in out
+        out = await loop.run_in_executor(
+            None, digq, "+tcp", "web.foo.com", "A")
+        assert "status: NOERROR" in out and "10.7.7.7" in out
+
+    asyncio.run(serve(run))

@@ -178,10 +178,13 @@ def fresh_imports(modules):
         [sys.executable, "-c", probe], cwd=ROOT, env=env))
 
 
-#: the operator CLIs and the systemctl stand-in of the install path
+#: the operator CLIs and the systemctl stand-in of the install path,
+#: and the conformance harnesses
 INSTALL_MODULES = ("binder_torch.cli.bdig", "binder_torch.cli.zkput",
                    "binder_torch.cli.config_render",
-                   "binder_torch.deploy.systemctl_shim")
+                   "binder_torch.deploy.systemctl_shim",
+                   "binder_torch.cli.resolv_ns",
+                   "binder_torch.cli.conformance_tiers")
 LOADGEN_MODULES = ("binder_torch.loadgen.hostile",
                    "binder_torch.loadgen.population")
 
