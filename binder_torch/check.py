@@ -27,25 +27,29 @@ c. fuzz: ``native/Makefile``'s ``fuzz-smoke``: the four
    (``None``).  The sanitizers write their reports to files
    (``log_path``, for the same reason); a nonzero exit or a report
    fails the step, and the reports are kept under ``_build/check/``.
-d. asan: ``native/Makefile``'s ``check-asan``: the reference's
-   fast-path suites (:data:`REFERENCE_SUITES`, unedited) and the port's
-   in-process C-lane suites (:data:`PORT_SUITES`) in child ``python -m
-   pytest`` processes with ``libasan`` preloaded and
-   ``ASAN_OPTIONS=detect_leaks=0``, against ``extension.asan``.  Every
-   build is made before the preload is set, so no compiler runs under
-   it.  The pytest plugin ``tests/asan_lane.py`` (in the tests tree:
-   this module never imports the reference) loads the ASan build before
-   collection, as ``binder_tpu._binderfastio`` for the reference's
-   suites, and reports what was loaded; the step fails unless every
-   ``_binderfastio`` mapped into a suite process is the ASan artifact
-   (its bytes, with ``libasan`` among its ``DT_NEEDED``) and every
-   suite ran, none skipped.  Scope, as ``check-asan``'s: processes the
-   suites start themselves (``LANE_MAIN`` servers, the build tests'
-   interpreters) load the plain build under the same preload.
+d. asan: ``native/Makefile``'s ``check-asan``: the port's in-process
+   C-lane suites (:data:`PORT_SUITES`), among them the port's
+   counterparts of the reference's fast-path suites
+   (:data:`COUNTERPARTS`), in child ``python -m pytest`` processes with
+   ``libasan`` preloaded and ``ASAN_OPTIONS=detect_leaks=0``, against
+   ``extension.asan``.  Every build is made before the preload is set,
+   so no compiler runs under it.  The pytest plugin
+   ``tests/asan_lane.py`` (in the tests tree) loads the ASan build
+   before collection, deselects the cases marked ``reference`` (they
+   import ``binder_tpu``, which runs on the CPU only) and reports what
+   was loaded; the step fails unless every ``_binderfastio`` mapped
+   into a suite process is the ASan artifact (its bytes, with
+   ``libasan`` among its ``DT_NEEDED``), no ``binder_tpu`` module was
+   loaded in any of them, and every suite ran, none skipped.  Scope,
+   as ``check-asan``'s: processes the suites start themselves (the
+   build tests' interpreters) load the plain build under the same
+   preload.
 
 The port suites are those that drive the extension in the pytest
-process itself: the C lane against the Python lane and the build
-(``test_torch_fastio.py``), the zone table through both packages
+process itself: the C lane against the Python lane, the batched
+syscalls and the build (``test_torch_fastio.py``), the answer cache
+and the raw lane (``test_torch_fastpath.py``,
+``test_torch_raw_lane.py``), the zone table
 (``test_torch_zone.py``), the RRL sampler on the C drain
 (``test_torch_rrl_sampling.py``), the native invalidation case
 (``test_torch_invalidation.py``) and the query-log ring
@@ -84,22 +88,25 @@ COV_ITERATIONS = 5_000
 #: fuzzers run at once, one a core
 FUZZ_JOBS = os.cpu_count() or 1
 
-REFERENCE_SUITES = ("tests/test_fastio.py", "tests/test_fastpath.py",
-                    "tests/test_raw_lane.py")
-PORT_SUITES = ("tests/test_torch_fastio.py", "tests/test_torch_zone.py",
+PORT_SUITES = ("tests/test_torch_fastio.py", "tests/test_torch_fastpath.py",
+               "tests/test_torch_raw_lane.py", "tests/test_torch_zone.py",
                "tests/test_torch_rrl_sampling.py",
                "tests/test_torch_invalidation.py",
                "tests/test_torch_log_ring.py")
+#: the reference's fast-path suites (``native/Makefile``'s
+#: ``check-asan``) and where the port holds their cases, each under its
+#: name: a file, or a class of one (``file::class``)
+COUNTERPARTS = {
+    "tests/test_fastio.py": "tests/test_torch_fastio.py::TestBatchIO",
+    "tests/test_fastpath.py": "tests/test_torch_fastpath.py",
+    "tests/test_raw_lane.py": "tests/test_torch_raw_lane.py",
+}
 #: the port's suites run in this many processes, each every N-th test
 #: (the build tests of ``test_torch_fastio.py`` take most of the time)
 PORT_SHARDS = 6
-#: the sanitized pytest processes, run at once: the reference's suites
-#: with its module name bound to the ASan build, and the port's
-ASAN_RUNS = {
-    "reference": (REFERENCE_SUITES, ("--asan-reference",)),
-    **{f"port-{i}": (PORT_SUITES, ("--asan-shard", f"{i}/{PORT_SHARDS}"))
-       for i in range(PORT_SHARDS)},
-}
+#: the sanitized pytest processes, run at once
+ASAN_RUNS = {f"port-{i}": (PORT_SUITES, ("--asan-shard", f"{i}/{PORT_SHARDS}"))
+             for i in range(PORT_SHARDS)}
 #: tests/asan_lane.py, with tests/ on PYTHONPATH
 ASAN_PLUGIN = "asan_lane"
 
@@ -317,27 +324,38 @@ def libasan() -> str:
 
 
 def _junit(path: str, files: Iterable[str]) -> dict:
+    """A junit file's counts; the cases run per file of ``files`` and
+    per reference suite of :data:`COUNTERPARTS`."""
     suite = ET.parse(path).getroot()
     if suite.tag == "testsuites":
         suite = suite[0]
     counts = {k: int(suite.get(k, 0))
               for k in ("tests", "failures", "errors", "skipped")}
     per_file = {f: 0 for f in files}
+    counterparts = {ref: 0 for ref in COUNTERPARTS}
     for case in suite.iter("testcase"):
         module = case.get("classname", "").split(".")
         for f in per_file:
             if module[:2] == ["tests", os.path.basename(f)[:-3]]:
                 per_file[f] += 1
+        for ref, where in COUNTERPARTS.items():
+            f, _, cls = where.partition("::")
+            if module[:2] == ["tests", os.path.basename(f)[:-3]] and \
+                    (not cls or module[2:3] == [cls]):
+                counterparts[ref] += 1
     counts["passed"] = (counts["tests"] - counts["failures"]
                         - counts["errors"] - counts["skipped"])
     counts["per_file"] = per_file
+    counts["counterparts"] = counterparts
     return counts
 
 
 def asan_step(runs=None) -> dict:
     """Run the suites of ``runs`` (default :data:`ASAN_RUNS`) against
-    the ASan build; per run its pass count, seconds and the extensions
-    it loaded."""
+    the ASan build: per run its pass count, seconds and the extensions
+    it loaded (``runs``); the cases passed in all, those of each
+    reference suite's counterpart, the ``reference`` cases deselected
+    and the ``binder_tpu`` modules loaded (none, or the step fails)."""
     runs = ASAN_RUNS if runs is None else runs
     try:
         built = fastio_build.build_all(("extension.asan",)
@@ -380,7 +398,6 @@ def asan_step(runs=None) -> dict:
             xml = os.path.join(tmp, name + ".xml")
             if os.path.exists(xml):
                 r.update(_junit(xml, files))
-            reference = "--asan-reference" in extra
             for f, n in r.get("per_file", {}).items():
                 ran[f] = ran.get(f, 0) + n
             reports, report_text = _reports(report_dir, name)
@@ -395,19 +412,33 @@ def asan_step(runs=None) -> dict:
             with open(os.path.join(tmp, name + ".json")) as f:
                 loaded = json.load(f)
             r["loaded"] = loaded
-            want = "binder_tpu._binderfastio" if reference else \
-                "binder_torch._binderfastio"
             plain = [p for p, h in loaded["mapped"].items() if h != digest]
-            if want not in loaded["modules"] or not loaded["mapped"] or plain:
+            if "binder_torch._binderfastio" not in loaded["modules"] or \
+                    not loaded["mapped"] or plain:
                 errors.append(f"{name}: not every extension in the process "
                               f"is the ASan build {artifact}: {loaded}")
+            if loaded["reference_modules"]:
+                errors.append(f"{name}: the reference was loaded: "
+                              f"{loaded['reference_modules']}")
     idle = [f for f, n in ran.items() if n == 0]
     if idle:
         errors.append(f"suites that ran nothing: {idle}")
     if errors:
         raise CheckFailure("asan: " + "\n".join(errors))
     os.rmdir(report_dir)
-    return out
+    return {
+        "runs": out,
+        "passed": sum(r["passed"] for r in out.values()),
+        "counterparts": {ref: sum(r["counterparts"][ref]
+                                  for r in out.values())
+                         for ref in COUNTERPARTS},
+        "deselected_reference": len({
+            t for r in out.values()
+            for t in r["loaded"]["deselected_reference"]}),
+        "reference_modules": sorted({
+            m for r in out.values()
+            for m in r["loaded"]["reference_modules"]}),
+    }
 
 
 def _pytest(cmd, env):

@@ -56,7 +56,13 @@ it started and exits non-zero without printing the ``ok`` line:
    SIGKILLed and restored by ``topology start``: every answer right,
    every write read back through the cache, every backend serving on
    its C lane and logging one line per query it completed; ``topology
-   stop`` leaves nothing.
+   stop`` leaves nothing.  A 1 Hz series runs from the stream's start
+   to the restored backend serving: the client's answers and retries,
+   each backend's completed queries, ZooKeeper session gauges, session
+   rebuilds and loop-lag stalls, the balancer's forwards and health per
+   backend, the ZooKeeper server's busy share and the churn's
+   ``set_data`` round trips, with the kill and the re-converge on the
+   same clock.
 7. systemd: the port installed as on a systemd host
    (``binder_torch/deploy/README.md``), its units run by the
    ``systemctl`` stand-in ``binder_torch.deploy.systemctl_shim``:
@@ -78,7 +84,11 @@ it started and exits non-zero without printing the ``ok`` line:
    phase's zone with a ``chaos`` block scripting every supervisor-side
    fault, under the 16-socket stream: every query answered or refused,
    nothing stale past the cap, every action injected, the respawned
-   and rolled workers the port's, RRL engaged, the replica skew caught;
+   and rolled workers the port's, the replica skew caught, and the
+   ``rrl-flood`` limited (dropped or slipped, as the reference's gate
+   holds) on the workers it reached, each worker's own limiter read on
+   its metrics port through the flood and the kill, so that a worker
+   killed before its next stats frame still counts;
    (b) in process, recursion to a remote DC through a ``ChaosUpstream``
    under loss, then a dead peer, then recovery, with the store's
    session lost and restored: stale within the cap, SERVFAIL past it,
@@ -191,11 +201,12 @@ it started and exits non-zero without printing the ``ok`` line:
    compiler's own defaults); the fuzz smoke,
    the four ASan/UBSan mutational fuzzers at 20,000 iterations and the
    four coverage-guided ones at 5,000 over ``native/fuzz/corpus``, which
-   must stay byte for byte as it was; the reference's fast-path suites
-   and the port's in-process C-lane suites in pytest processes with
-   ``libasan`` preloaded against the ASan extension, every extension
-   loaded there the ASan build.  No warning, no sanitizer report, no
-   failed or skipped case.  It runs beside the aggregate and collective
+   must stay byte for byte as it was; the port's in-process C-lane
+   suites, the counterparts of the reference's fast-path suites among
+   them, in pytest processes with ``libasan`` preloaded against the
+   ASan extension, every extension loaded there the ASan build, their
+   ``reference`` cases deselected and no ``binder_tpu`` module loaded.
+   No warning, no sanitizer report, no failed or skipped case.  It runs beside the aggregate and collective
    phases, whose gates hold values, not times; its line is printed
    before a failure is raised, so the steps that passed still show.
 17. aggregate: the port's latency summary (mean, p50, p99) on ``cuda``
@@ -527,12 +538,8 @@ def make_check_phase(build_s=None, iterations=None, asan_runs=None) -> dict:
               "failed": [name for name, (_, e, _) in done.items() if e],
               **{name: r for name, (r, _, _) in done.items()}}
     if report["asan"] is not None:
-        for run in report["asan"].values():
+        for run in report["asan"]["runs"].values():
             run["loaded"] = sorted(run["loaded"]["modules"])
-        report["asan_passed"] = {
-            group: sum(r["passed"] for name, r in report["asan"].items()
-                       if name.startswith(group))
-            for group in ("reference", "port")}
     log(json.dumps({"check": report}))
     if report["failed"]:
         raise PhaseError("check: " + "\n".join(
@@ -674,6 +681,57 @@ def native_gate(what: str, before, after):
     if not served["c_zone_hits"] + served["c_cache_hits"] > 0:
         errors.append(f"{what}: the C lane served nothing: {served}")
     return errors
+
+
+def metrics_text(port: int, path: str = "/metrics",
+                 timeout: float = 1.0) -> str:
+    """One GET of a metrics port, no retry: OSError when nothing
+    answers (a sampler must not stall on a process that died)."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=timeout) as r:
+        return r.read().decode()
+
+
+class Series:
+    """A thread that calls ``read()`` every ``period`` seconds (every
+    ``fast`` seconds while ``fast_while()`` is true) until
+    :meth:`stop`, and keeps ``(unix time, value)`` of each reading; a
+    reading that raises ``OSError`` or ``ValueError`` (a process gone,
+    a port not yet up) is left out."""
+
+    def __init__(self, read, period: float = 1.0, fast: float = None,
+                 fast_while=None):
+        import threading
+        self.read, self.period = read, period
+        self.fast, self.fast_while = fast, fast_while
+        self.points = []
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._done.is_set():
+            t = time.time()
+            try:
+                self.points.append((t, self.read()))
+            except (OSError, ValueError):
+                pass
+            fast = self.fast is not None and self.fast_while()
+            self._done.wait(max(0.0, (self.fast if fast else self.period)
+                                - (time.time() - t)))
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._done.set()
+        if self._thread.ident is not None:
+            self._thread.join()
+        return self.points
+
+    def __exit__(self, *exc):
+        self.stop()
 
 
 def spawn(args, log_path: str):
@@ -1285,7 +1343,7 @@ def zone_sweep(port: int, hosts: int, deadline: float,
 
 def udp_flows(port: int, queries, flows: int, concurrency: int,
               on_progress=None, sources=None, check=check_reply,
-              stop=None):
+              stop=None, live=None):
     """Drive ``queries`` over ``flows`` UDP sockets (distinct source
     ports, so SO_REUSEPORT spreads them over the group; each bound to
     its address in ``sources`` when given) with ``concurrency`` in
@@ -1293,7 +1351,10 @@ def udp_flows(port: int, queries, flows: int, concurrency: int,
     once more.  ``check(msg, expect)`` judges each reply (an empty
     string when it is right).  With ``stop``, the stream cycles
     through ``queries`` (at most 65,536, one per query ID) until
-    ``stop()`` is true.  Returns ``(latencies_us, errors, retries)``."""
+    ``stop()`` is true.  ``live``, a dict, is kept up to date with the
+    counts of queries ``answered``, ``retries`` sent and queries
+    ``lost`` (no reply to the query or its retry) while the stream
+    runs.  Returns ``(latencies_us, errors, retries)``."""
     from binder_torch.dns import Message, make_query
     wires = [make_query(name, qtype, qid=i & 0xFFFF).encode()
              for i, (name, qtype, _) in enumerate(queries)]
@@ -1314,6 +1375,9 @@ def udp_flows(port: int, queries, flows: int, concurrency: int,
     nxt = done = 0
     total = len(queries) if stop is None else None    # None: until stop
     deadline = time.monotonic() + UDP_DEADLINE_S
+    if live is None:
+        live = {}
+    live.update(answered=0, retries=0, lost=0)
     try:
         while total is None or nxt < total or any(pending):
             if total is None and stop():
@@ -1345,6 +1409,7 @@ def udp_flows(port: int, queries, flows: int, concurrency: int,
                     idx, t_first, _ = entry
                     lat.append((t1 - t_first) / 1000.0)
                     done += 1
+                    live["answered"] = done
                     why = check(Message.decode(data), queries[idx][2])
                     if why:
                         errors.append(f"{queries[idx][0]}: {why}")
@@ -1358,10 +1423,12 @@ def udp_flows(port: int, queries, flows: int, concurrency: int,
                     if qid in retried[k]:
                         errors.append(f"{queries[entry[0]][0]}: no reply "
                                       "to the query or its retry")
+                        live["lost"] += 1
                         del pending[k][qid]
                         continue
                     retried[k].add(qid)
                     retries += 1
+                    live["retries"] = retries
                     entry[2] = now
                     s.send(wires[entry[0]])
             if time.monotonic() > deadline:
@@ -1430,6 +1497,7 @@ def churn_main(zk_port: int, dns_port: int, sources=None) -> int:
         socks.append(s)
     latest = [None]          # the newest acknowledged write to probe
     fresh_ms, stale = [], []
+    acks = []                # (unix time, set_data round trip ms)
     done = threading.Event()
 
     def prober():
@@ -1458,8 +1526,10 @@ def churn_main(zk_port: int, dns_port: int, sources=None) -> int:
         t0 = t_next = time.monotonic()
         while not stop.is_set():
             k = w % CHURN_NAMES
+            t_set = time.monotonic()
             await client.set_data(f"/com/foo/churn/c{k:02d}",
                                   host_json(churn_addr(w)))
+            acks.append((time.time(), (time.monotonic() - t_set) * 1e3))
             last[k] = w
             latest[0] = (k, w, time.monotonic())
             w += 1
@@ -1484,9 +1554,20 @@ def churn_main(zk_port: int, dns_port: int, sources=None) -> int:
         s.close()
     print(json.dumps({"writes": writes, "seconds": elapsed,
                       "fresh_ms": fresh_ms, "stale_ms": stale,
-                      "final_ok": final_ok, "final_s": final_s}),
+                      "final_ok": final_ok, "final_s": final_s,
+                      "acks": per_second(acks)}),
           flush=True)
     return 0
+
+
+def per_second(samples):
+    """``[unix second, n, p50, max]`` of ``(unix time, value)``
+    samples, one row a second that has any."""
+    by = {}
+    for t, v in samples:
+        by.setdefault(int(t), []).append(v)
+    return [[t, len(v), float(np.percentile(v, 50)), max(v)]
+            for t, v in sorted(by.items())]
 
 
 
@@ -2184,6 +2265,179 @@ def query_lines(log_path: str, offset: int = 0) -> int:
     return n
 
 
+def exposition_sums(text: str, families):
+    """:func:`metric_sum` of each of ``families`` in one pass; a name
+    ``family@le`` is the cumulative count of histogram ``family`` at
+    bucket ``le``."""
+    want = {}
+    for name in families:
+        fam, _, le = name.partition("@")
+        want.setdefault(fam + "_bucket" if le else fam, []).append(
+            (name, f'le="{le}"' if le else None))
+    out = dict.fromkeys(families, 0.0)
+    for line in text.splitlines():
+        for name, le in want.get(line.split("{", 1)[0].split(" ", 1)[0],
+                                 ()):
+            if le is None or le in line:
+                out[name] += float(line.rsplit(" ", 1)[1])
+    return out
+
+
+#: what the topology series reads of each backend's ``/metrics``
+TOPOLOGY_FAMILIES = {
+    "completed": "binder_requests_completed",
+    "zk_connected": "binder_zk_connected",
+    "zk_sessions": "binder_zk_sessions_established",
+    "rebuilds": "binder_store_session_rebuilds",
+    "zk_outstanding": "binder_zk_outstanding_requests",
+    "degraded": "binder_degraded_state",
+    "lag_samples": "binder_loop_lag_seconds_count",
+    "lag_under": "binder_loop_lag_seconds@0.25",
+    "lag_max": "binder_loop_lag_max_seconds"}
+
+
+def topology_reading(base: int, backends: int, sockdir: str, pids, live):
+    """One reading of the topology under its stream: the client's
+    counts (``live``, :func:`udp_flows`), each backend's completed
+    queries, ZooKeeper session gauges, session rebuilds and loop-lag
+    samples over the watchdog's 250 ms from its ``/metrics`` (left out
+    while it does not answer), the balancer's per-backend forwards and
+    health and its drops, the CPU seconds of each process of
+    ``pids()`` (name: pid; this process's own by name ``smoke``)."""
+    cpu = {"smoke": time.process_time()}
+    for name, pid in pids().items():
+        try:
+            cpu[name] = cpu_seconds(pid)
+        except (OSError, IndexError, ValueError):
+            continue
+    out = {"client": dict(live), "cpu": cpu, "backends": {},
+           "balancer": None}
+    for k in range(backends):
+        try:
+            got = exposition_sums(metrics_text(base + 1000 + k),
+                                  TOPOLOGY_FAMILIES.values())
+        except OSError:
+            continue
+        row = {key: got[fam] for key, fam in TOPOLOGY_FAMILIES.items()}
+        row["stalls"] = row.pop("lag_samples") - row.pop("lag_under")
+        out["backends"][k] = row
+    try:
+        stats = balancer_stats(sockdir)
+    except (OSError, ValueError):
+        return out
+    out["balancer"] = {
+        "forwarded": forwarded_by(stats, base),
+        "healthy": {int(os.path.basename(b["path"])) - base: b["healthy"]
+                    for b in stats["backends"]},
+        **{k: stats.get(k) for k in ("udp_queries", "drops", "wq_overflows",
+                                     "backend_stalls")}}
+    return out
+
+
+def topology_series(points, backends: int, t_start: float, kill_at=None,
+                    restored_at=None, acks=(), victim_forwarded_at_kill=None):
+    """The 1 Hz series of :func:`topology_reading` as rows of what
+    changed since the reading before, each with its second since
+    ``t_start`` (unix); the churn's ``set_data`` acknowledgements
+    (:func:`per_second`) beside them; and a summary: the client's
+    answers a second, each process's busy share and those at a full
+    core, new sessions, loop stalls, the forwards the balancer dealt
+    the killed backend (the last instance) after its kill and before
+    it was healthy again, the acknowledgement latencies."""
+    acks = {int(t): (n, p50, mx) for t, n, p50, mx in acks}
+    rows = []
+    for (t0, a), (t1, b) in zip(points, points[1:]):
+        dt = t1 - t0
+        row = {"t": round(t1 - t_start, 2),
+               "answered_per_s": (b["client"].get("answered", 0)
+                                  - a["client"].get("answered", 0)) / dt,
+               "retries": b["client"].get("retries", 0)
+               - a["client"].get("retries", 0),
+               "lost": b["client"].get("lost", 0)
+               - a["client"].get("lost", 0),
+               "busy": {k: round((b["cpu"][k] - a["cpu"][k]) / dt, 3)
+                        for k in b["cpu"] if k in a["cpu"]
+                        and b["cpu"][k] >= a["cpu"][k]}}
+        # counters: what each backend added (a restarted backend's
+        # counters start again from zero)
+        for key in ("completed", "stalls", "zk_sessions", "rebuilds"):
+            row[key] = [None if k not in a["backends"]
+                        or k not in b["backends"] else
+                        counter_delta(a["backends"][k][key],
+                                      b["backends"][k][key])
+                        for k in range(backends)]
+        for key in ("zk_connected", "zk_outstanding", "degraded",
+                    "lag_max"):
+            row[key] = [b["backends"].get(k, {}).get(key)
+                        for k in range(backends)]
+        if a["balancer"] and b["balancer"]:
+            row["forwarded"] = [b["balancer"]["forwarded"].get(k, 0)
+                                - a["balancer"]["forwarded"].get(k, 0)
+                                for k in range(backends)]
+            row["healthy"] = [b["balancer"]["healthy"].get(k)
+                              for k in range(backends)]
+            row["balancer_queries"] = (b["balancer"]["udp_queries"] or 0) \
+                - (a["balancer"]["udp_queries"] or 0)
+            row["balancer_drops"] = b["balancer"]["drops"]
+        n, p50, mx = acks.get(int(t1), (0, None, None))
+        row.update(acks=n, ack_p50_ms=p50, ack_max_ms=mx)
+        rows.append(row)
+    streaming = [r for r in rows if r["answered_per_s"] > 0]
+    rates = [r["answered_per_s"] for r in streaming]
+    victim = backends - 1
+    names = sorted({k for r in rows for k in r["busy"]})
+    median_busy = {k: float(np.median([r["busy"].get(k, 0.0)
+                                       for r in streaming]))
+                   for k in names} if streaming else {}
+    summary = {
+        "answered_per_s": [min(rates), float(np.median(rates)), max(rates)]
+        if rates else None,
+        "busy_max": {k: max(r["busy"].get(k, 0.0) for r in rows)
+                     for k in names},
+        "busy_median": median_busy,
+        # a process at a full core for most of the stream bounds it
+        "saturated": [k for k, v in median_busy.items()
+                      if v >= SATURATED_BUSY],
+        "zk_sessions_new": sum(x or 0 for r in rows
+                               for x in r["zk_sessions"]),
+        "rebuilds_new": sum(x or 0 for r in rows for x in r["rebuilds"]),
+        "stalls": sum(x or 0 for r in rows for x in r["stalls"]),
+        "lag_max_s": max((x or 0 for r in rows for x in r["lag_max"]),
+                         default=None),
+        "ack_max_ms": max((r["ack_max_ms"] for r in rows
+                           if r["ack_max_ms"] is not None), default=None),
+        "ack_p50_max_ms": max((r["ack_p50_ms"] for r in rows
+                               if r["ack_p50_ms"] is not None),
+                              default=None),
+        "retries": sum(r["retries"] for r in rows),
+        "lost": sum(r["lost"] for r in rows)}
+    if kill_at is not None:
+        summary["kill_s"] = kill_at - t_start
+        # what the balancer dealt the killed backend from the kill
+        # until it was healthy again
+        down = [p["balancer"]["forwarded"].get(victim, 0)
+                for t, p in points if t > kill_at and p["balancer"]
+                and not p["balancer"]["healthy"].get(victim)]
+        if down and victim_forwarded_at_kill is not None:
+            summary["victim_forwarded_while_down"] = \
+                max(down) - victim_forwarded_at_kill
+        summary["victim_down_readings"] = len(down)
+    if restored_at is not None:
+        summary["restored_s"] = restored_at - t_start
+    return rows, summary
+
+
+#: a process whose median busy share over the stream's seconds reaches
+#: this runs at a full core: what the stream can go no faster than
+SATURATED_BUSY = 0.9
+
+
+def counter_delta(a: float, b: float) -> float:
+    """What a counter added from reading ``a`` to reading ``b``; a
+    process that restarted counts again from zero."""
+    return b - a if b >= a else b
+
+
 def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
                    backends: int = TOPOLOGY_BACKENDS, native=None):
     """The shipped topology with its production posture: ``backends``
@@ -2209,13 +2463,17 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
     victim = backends - 1            # a direct-return instance
     procs = []
     pids = set()                     # every instance and balancer pid
+    # the cores this process may run on: what the balancer, the
+    # backends, the stand-in, the churn and the client share
     report = {"zone_names": hosts, "backends": backends,
-              "relay_backends": relay}
+              "relay_backends": relay,
+              "host_cpus": len(os.sched_getaffinity(0))}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_topology_") as tmp:
         rundir = os.path.join(tmp, "run")
         state = os.path.join(rundir, "state")
         sockdir = os.path.join(rundir, "sockets")
         started = False
+        watch, live, killed, restored, t_series = None, {}, {}, {}, None
         zk = ZooKeeper(hosts, tmp)
         procs.append(zk.proc)
         try:
@@ -2291,13 +2549,13 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
             if churn.stdout.readline().strip() != b"churn: ready":
                 raise PhaseError("topology: churn process did not start")
 
-            killed, restored = {}, {}
             victim_log = os.path.join(state, f"binder-{base + victim}.log")
 
             def reconverge():
                 restored["rc"], restored["out"] = topology(
                     *start, "-n", str(backends))
                 restored["s"] = time.monotonic() - killed["at"]
+                restored["unix"] = time.time()
 
             thread = threading.Thread(target=reconverge)
 
@@ -2307,7 +2565,13 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
                 pid = inst[victim]
                 cpu = cpu_seconds(pid)
                 os.kill(pid, signal.SIGKILL)
-                killed.update(pid=pid, cpu=cpu, at=time.monotonic())
+                killed.update(pid=pid, cpu=cpu, at=time.monotonic(),
+                              unix=time.time())
+                try:
+                    killed["forwarded"] = forwarded_by(
+                        balancer_stats(sockdir), base).get(victim)
+                except (OSError, ValueError):
+                    killed["forwarded"] = None
                 report["kill_after_s"] = killed["at"] - t0
                 while pid_running(pid):
                     time.sleep(0.001)
@@ -2320,10 +2584,27 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
             c_lane0 = {k: native_reading(mport(k)) for k in range(backends)}
             cpu0 = {k: cpu_seconds(pid) for k, pid in inst.items()}
             client_cpu0 = time.process_time()
+            # the 1 Hz series, from the stream's start to the restored
+            # backend serving
+            balancer_pid = read_int(os.path.join(rundir, "balancer.pid"))
+
+            def series_pids():
+                out = {"zk": zk.proc.pid, "churn": churn.pid,
+                       "balancer": balancer_pid}
+                for k in range(backends):
+                    try:
+                        out[f"backend{k}"] = instance_pid(k)
+                    except (OSError, ValueError):
+                        continue
+                return out
+
+            watch = Series(lambda: topology_reading(
+                base, backends, sockdir, series_pids, live)).__enter__()
+            t_series = time.time()
             t0 = time.monotonic()
             lat, stream_errors, retries = udp_flows(
                 port, queries, FLOWS, CONCURRENCY, on_progress,
-                sources=BALANCER_CLIENTS)
+                sources=BALANCER_CLIENTS, live=live)
             udp_s = time.monotonic() - t0
             errors += stream_errors
             report.update(udp_queries=n_udp, udp_answered=len(lat),
@@ -2393,6 +2674,11 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
             report["restore"] = {"start_s": restored["s"],
                                  "serving_s": time.monotonic()
                                  - killed["at"]}
+            report["series"], report["series_summary"] = topology_series(
+                watch.stop(), backends, t_series, killed["unix"],
+                restored["unix"], churned["acks"], killed["forwarded"])
+            log(json.dumps({"topology_series_summary":
+                            report["series_summary"]}))
             wait_balancer(sockdir, backends, backends - relay,
                           time.monotonic() + BALANCER_DEADLINE_S)
             errors += tcp_checks(port, query_mix(rng, N_TCP, hosts))
@@ -2480,6 +2766,13 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
                     for k in range(backends)]
             report["errors"] = len(errors)
         except PhaseError:
+            if watch is not None and watch.points:
+                rows, summary = topology_series(
+                    watch.stop(), backends, t_series, killed.get("unix"),
+                    restored.get("unix"),
+                    victim_forwarded_at_kill=killed.get("forwarded"))
+                log(json.dumps({"topology_series": rows,
+                                "topology_series_summary": summary}))
             logs = [zk.log, os.path.join(rundir, "balancer.log")]
             if os.path.isdir(state):
                 logs += sorted(os.path.join(state, f)
@@ -2492,6 +2785,8 @@ def topology_phase(hosts: int = HOSTS, n_udp: int = TOPOLOGY_UDP,
                         f"---\n{tail}")
             raise
         finally:
+            if watch is not None:
+                watch.stop()
             if started:
                 topology("stop", "-D", rundir)
             if os.path.isdir(state):
@@ -3140,6 +3435,95 @@ CHAOS_NAMES = {f"chaos{k}.{DOMAIN}": f"10.254.{k}.{(592 + k) % 250 + 1}"
                for k in range(8)}
 
 
+#: each worker's own response-rate limiter counters
+#: (``binder_torch/server.py``), read on the worker's metrics port
+RRL_FAMILIES = {"responses": "binder_rrl_responses_total",
+                "dropped": "binder_rrl_dropped_total",
+                "slipped": "binder_rrl_slipped_total",
+                "allowlisted": "binder_rrl_allowlisted_total",
+                "buckets": "binder_rrl_buckets"}
+#: the chaos leg reads every worker's limiter once a second, and this
+#: often from half a second before the flood to a second after the
+#: kill, so that the killed worker's last reading follows its share of
+#: the flood (its 1 Hz stats frame may not)
+RRL_WATCH_FAST_S = 0.05
+
+
+def rrl_reading(mport: int):
+    """Per shard of a group: its pid, the age of its last stats frame
+    at the supervisor, and its own limiter counters (left out when its
+    metrics port does not answer)."""
+    out = {}
+    for w in json.loads(metrics_text(mport, "/status"))["shards"]["workers"]:
+        entry = {"pid": w["pid"], "report_age": w["last_report_age_seconds"]}
+        if w["alive"] and w["metrics_port"]:
+            try:
+                text = metrics_text(w["metrics_port"])
+            except OSError:
+                text = None
+            if text is not None:
+                got = exposition_sums(text, RRL_FAMILIES.values())
+                entry.update({k: got[f] for k, f in RRL_FAMILIES.items()})
+        out[w["shard"]] = entry
+    return out
+
+
+def rrl_incarnations(points):
+    """The last counters read of each worker process (shard, pid) in a
+    series of :func:`rrl_reading`, with the unix time of that reading;
+    and per shard the unix times of the stats frames the supervisor
+    had from each of its processes."""
+    last, frames = {}, {}
+    for t, reading in points:
+        for shard, w in reading.items():
+            key = (shard, w["pid"])
+            if "dropped" in w:
+                last[key] = dict({k: w[k] for k in RRL_FAMILIES},
+                                 shard=shard, pid=w["pid"], read_at=t)
+            if w["report_age"] is not None:
+                frames.setdefault(key, set()).add(
+                    round(t - w["report_age"], 2))
+    return ([last[k] for k in sorted(last)],
+            {k: sorted(v) for k, v in frames.items()})
+
+
+def rrl_flood_gate(incarnations):
+    """The chaos leg's ``rrl-flood`` gate on each worker process's last
+    reading of its own limiter (:func:`rrl_incarnations`; a worker
+    killed before its next stats frame counts what it limited all the
+    same).  It holds what the reference's does
+    (``tools/chaos_smoke.py``): the spoofed burst was rate-limited,
+    dropped or slipped (with ``slipRatio`` 2 every second limited
+    response slips), and the allowlisted measurement client bypassed
+    the limiter; and that the limiting happened on the workers the
+    flood reached: those tracking a flood prefix (the measurement
+    client's prefix never makes a bucket).  Returns the summary and
+    the errors."""
+    rows = [dict(w, limited=w["dropped"] + w["slipped"],
+                 judged=w["responses"] + w["dropped"] + w["slipped"])
+            for w in incarnations]
+    summary = {k: sum(w[k] for w in rows) for k in (
+        "limited", "dropped", "slipped", "judged", "allowlisted")}
+    summary["received_by"] = [[w["shard"], w["pid"]] for w in rows
+                              if w["buckets"] > 0]
+    summary["limited_by"] = [[w["shard"], w["pid"]] for w in rows
+                             if w["limited"] > 0]
+    summary["workers"] = rows
+    errors = []
+    if summary["limited"] <= 0:
+        errors.append("rrl-flood: never rate-limited (dropped + slipped "
+                      "0 on every worker process)")
+    if summary["allowlisted"] <= 0:
+        errors.append("rrl-flood: the allowlisted measurement prefix "
+                      "never bypassed the limiter")
+    stray = [x for x in summary["limited_by"]
+             if x not in summary["received_by"]]
+    if stray:
+        errors.append(f"rrl-flood: limited on worker(s) {stray} that "
+                      "track no flood prefix")
+    return summary, errors
+
+
 def log_events(log_path: str):
     """``(unix time, message)`` of every JSON line of a process log."""
     from datetime import datetime, timezone
@@ -3226,7 +3610,11 @@ def chaos_group_leg(hosts: int = HOSTS, shards: int = CHAOS_SHARDS):
     chaos plan, under the 16-socket stream; returns its report."""
     from binder_torch.chaos import FaultPlan
     rng = random.Random(SEED + 4)
-    scheduled = [a for _, a, _ in FaultPlan.parse(CHAOS_PLAN).timeline]
+    timeline = FaultPlan.parse(CHAOS_PLAN).timeline
+    scheduled = [a for _, a, _ in timeline]
+    at = {a: t for t, a, _ in timeline}
+    kill_shard = next(int(kw["shard"]) for _, a, kw in timeline
+                      if a == "shard-kill")
     procs = []
     report = {"zone_names": hosts, "shards": shards, "plan": CHAOS_PLAN}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as tmp:
@@ -3243,23 +3631,28 @@ def chaos_group_leg(hosts: int = HOSTS, shards: int = CHAOS_SHARDS):
             procs.append(group)
             wait_line(group, group_log, rb"chaos: FaultPlan armed",
                       "chaos: shard group", DEPLOY_BOOT_DEADLINE_S)
-            report["boot_s"] = time.monotonic() - t0
+            armed = time.monotonic()
+            report["boot_s"] = armed - t0
             text = read_bytes(group_log)
             port = int(re.search(rb"UDP DNS service started on "
                                  rb"[\d.]+:(\d+)", text).group(1))
             mport = int(re.search(rb"metrics server started on port "
                                   rb"(\d+)", text).group(1))
             first = http_json(mport, "/status")["shards"]["workers"]
-            rrl0 = sum(shard_series(mport, "binder_shard_rrl_dropped")
-                       .values())
             seen = []
             queries = query_mix(rng, 1 << 16, hosts)
+            window = (armed + at["rrl-flood"] - 0.5,
+                      armed + at["shard-kill"] + 1.0)
             t0 = time.monotonic()
-            lat, errors, retries = udp_flows(
-                port, queries, FLOWS, CONCURRENCY, check=chaos_judge(seen),
-                stop=LogWatch(group_log,
-                              b"chaos: injected restore-session",
-                              CHAOS_AFTER_S))
+            with Series(lambda: rrl_reading(mport), fast=RRL_WATCH_FAST_S,
+                        fast_while=lambda: window[0] < time.monotonic()
+                        < window[1]) as watch:
+                lat, errors, retries = udp_flows(
+                    port, queries, FLOWS, CONCURRENCY,
+                    check=chaos_judge(seen),
+                    stop=LogWatch(group_log,
+                                  b"chaos: injected restore-session",
+                                  CHAOS_AFTER_S))
             udp_s = time.monotonic() - t0
             report.update(udp_answered=len(lat), udp_retries=retries,
                           udp_qps=len(lat) / udp_s, stream_s=udp_s)
@@ -3329,12 +3722,25 @@ def chaos_group_leg(hosts: int = HOSTS, shards: int = CHAOS_SHARDS):
                 if snap["workers"][shard]["pid"] == first[shard]["pid"]:
                     errors.append(f"shard {shard} kept pid "
                                   f"{first[shard]['pid']}")
-            rrl = sum(shard_series(mport, "binder_shard_rrl_dropped")
-                      .values()) - rrl0
-            report["rrl_dropped"] = rrl
-            if rrl <= 0:
-                errors.append("rrl-flood: binder_shard_rrl_dropped did "
-                              "not advance")
+            # the flood against each worker process's own limiter, the
+            # killed one's as last read before the kill
+            incarnations, frames = rrl_incarnations(watch.points)
+            flood, rrl_errors = rrl_flood_gate(incarnations)
+            errors += rrl_errors
+            report["rrl_flood"] = flood
+            t_flood = injected.get("rrl-flood", [0.0])[0]
+            t_kill = injected.get("shard-kill", [0.0])[0]
+            flood["kill_s_after_flood"] = t_kill - t_flood
+            for w in flood["workers"]:
+                w["read_s_after_flood"] = w.pop("read_at") - t_flood
+            victim = (kill_shard, first[kill_shard]["pid"])
+            flood["killed_frames_s_after_flood"] = [
+                round(t - t_flood, 2) for t in frames.get(victim, ())
+                if t > t_flood - 2.0]
+            # what the supervisor folded from the stats frames, for the
+            # record: a worker killed before its next frame is missing
+            flood["supervisor_folded_dropped"] = shard_series(
+                mport, "binder_shard_rrl_dropped")
 
             # after the restore every sampled name answers right again
             t0 = time.monotonic()
@@ -6194,6 +6600,12 @@ def main() -> int:
     if left:
         print(f"chip_smoke: FAILED: process(es) {left} would not stop",
               file=sys.stderr)
+        return 1
+    reference = sorted(m for m in sys.modules
+                       if m.split(".")[0] == "binder_tpu")
+    if reference:
+        print(f"chip_smoke: FAILED: the reference was imported: "
+              f"{reference[:5]}", file=sys.stderr)
         return 1
     log(json.dumps({"native": {
         "build_s": built["build_s"], "build_wall_s": built["build_wall_s"],

@@ -15,25 +15,23 @@ preload).  Before collection this plugin
   directories, and makes ``fastio_build.build("extension")`` build (that
   is, find) ``extension.asan`` instead,
   so ``binder_torch._binderfastio`` and every test that asks the build
-  for the extension (``test_torch_zone.py``'s reference copy) load it;
-- with ``--asan-reference``, loads a copy of it as
-  ``binder_tpu._binderfastio`` (a copy, so the reference's module has
-  the shared object's static state to itself), as ``native/Makefile``'s
-  ``check-asan`` gives the reference's suites its ASan build;
+  for the extension load it.
 
-``--asan-shard I/N`` runs one of N interleaved shares of the collected
-tests, so that the check can spread long suites over processes.  At
-the end the plugin writes ``--asan-report``: every ``_binderfastio`` shared
-object mapped into the process with the sha256 of its bytes, and every
-such module imported, which the check holds against the ASan artifact.
+After collection it deselects every test marked ``reference`` (those
+import ``binder_tpu``, which stays on the CPU: the port's sanitized
+suites run without it), then keeps one of N interleaved shares of the
+rest with ``--asan-shard I/N``, so that the check can spread long
+suites over processes.  At the end the plugin writes ``--asan-report``:
+every ``_binderfastio`` shared object mapped into the process with the
+sha256 of its bytes, every such module imported, every ``binder_tpu``
+module loaded and the ``reference`` tests deselected, which the check
+holds against the ASan artifact and against the rule that the
+reference never loads.
 """
 import hashlib
-import importlib.util
 import json
 import os
-import shutil
 import sys
-import tempfile
 import types
 
 from binder_torch import fastio_build
@@ -49,21 +47,25 @@ def pytest_addoption(parser):
                      help="fastio_build.BUILD_DIR of the check")
     parser.addoption("--asan-report", required=True,
                      help="write the loaded extensions here (JSON)")
-    parser.addoption("--asan-reference", action="store_true",
-                     help="load the ASan build as binder_tpu._binderfastio")
     parser.addoption("--asan-shard", default="0/1",
                      help="I/N: run the tests collected I, I+N, I+2N, ...")
 
 
+#: node IDs of the ``reference`` tests deselected
+_deselected = []
+
+
 def pytest_collection_modifyitems(config, items):
+    reference = [t for t in items if t.get_closest_marker("reference")]
+    if reference:
+        _deselected.extend(t.nodeid for t in reference)
+        config.hook.pytest_deselected(items=reference)
+        items[:] = [t for t in items if not t.get_closest_marker("reference")]
     i, n = (int(x) for x in config.getoption("--asan-shard").split("/"))
     if n > 1:
         config.hook.pytest_deselected(
             items=[t for k, t in enumerate(items) if k % n != i])
         items[:] = items[i::n]
-
-
-_copies = []
 
 
 def pytest_configure(config):
@@ -88,15 +90,6 @@ def pytest_configure(config):
         tests = types.ModuleType("tests")
         tests.__path__ = [TESTS]
         sys.modules["tests"] = tests
-    if config.getoption("--asan-reference"):
-        _copies.append(tempfile.mkdtemp(prefix="asan_lane_"))
-        copy = os.path.join(_copies[-1], os.path.basename(path))
-        shutil.copy(path, copy)
-        name = "binder_tpu._binderfastio"
-        spec = importlib.util.spec_from_file_location(name, copy)
-        ext = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(ext)
-        sys.modules[name] = ext
 
 
 def _sha256(path):
@@ -115,7 +108,9 @@ def pytest_unconfigure(config):
     modules = {name: getattr(mod, "__file__", None)
                for name, mod in sys.modules.items()
                if name.endswith("._binderfastio")}
+    reference = sorted(name for name in sys.modules
+                       if name.split(".")[0] == "binder_tpu")
     with open(config.getoption("--asan-report"), "w") as f:
-        json.dump({"mapped": mapped, "modules": modules}, f)
-    for d in _copies:
-        shutil.rmtree(d, ignore_errors=True)
+        json.dump({"mapped": mapped, "modules": modules,
+                   "reference_modules": reference,
+                   "deselected_reference": _deselected}, f)

@@ -28,6 +28,9 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA device; skips where there is none")
+    config.addinivalue_line(
+        "markers", "reference: imports binder_tpu; runs on the CPU only "
+        "(the port's ASan lane deselects it)")
 
 
 @pytest.fixture(autouse=True)

@@ -7,9 +7,11 @@ build, whose variants have keys of their own and leave the plain
 extension's path and bytes as they were, and which holds on a
 toolchain that defines ``_FORTIFY_SOURCE`` on its own only through the
 port's fix of ``mbalancer.cpp`` (``fastio_build.FIXES``; the reference's
-line fails there, ROADMAP §C, fault 9); the reference's
-``test_fastio.py`` in a child pytest with ``libasan`` preloaded against
-the port's ASan build.  Then each step against a copy of ``native/``
+line fails there, ROADMAP §C, fault 9); the port's counterparts of the
+reference's ``test_fastio.py`` and ``test_raw_lane.py`` in child
+pytests with ``libasan`` preloaded against the port's ASan build, the
+``reference`` cases deselected and no ``binder_tpu`` module loaded, and
+the step failing where a suite process loads one.  Then each step against a copy of ``native/``
 (``fastio_build.NATIVE_DIR`` pointed at it) with a planted defect: an
 unused variable fails the ``-Werror`` step, a one-byte read past a
 heap block in ``fastpath.c`` fails the ASan step, a planted crash or
@@ -225,17 +227,47 @@ def test_port_fixes_are_what_the_compiler_sees(tmp_path, monkeypatch):
 
 
 def test_asan_step_runs_the_reference_suite(sanitizers):
-    runs = {"reference": (("tests/test_fastio.py",), ("--asan-reference",))}
-    out = check.asan_step(runs)["reference"]
-    assert out["passed"] == out["tests"] == 7
-    assert out["skipped"] == 0
+    # the reference's test_fastio.py and test_raw_lane.py suites, run as
+    # their port counterparts (TestBatchIO, test_torch_raw_lane.py) on
+    # the ASan build: the step no longer loads the reference itself.
+    # The raw lane's parity case with the reference is deselected
+    runs = {"port-0": (("tests/test_torch_fastio.py",), ("-k",
+                                                         "TestBatchIO")),
+            "port-1": (("tests/test_torch_raw_lane.py",), ())}
+    out = check.asan_step(runs)
+    fastio_run = out["runs"]["port-0"]
+    assert fastio_run["passed"] == fastio_run["tests"] == 7
+    assert fastio_run["skipped"] == 0
+    assert out["runs"]["port-1"]["passed"] == 13
+    assert out["passed"] == 20
+    assert out["counterparts"] == {"tests/test_fastio.py": 7,
+                                   "tests/test_fastpath.py": 0,
+                                   "tests/test_raw_lane.py": 13}
+    assert out["deselected_reference"] == 1
+    assert out["reference_modules"] == []
     asan = fastio_build.artifact_path("extension.asan")
     assert any(lib.startswith("libasan")
                for lib in check.needed_libraries(asan))
     assert not any(lib.startswith("libasan") for lib in
                    check.needed_libraries(fastio_build.build("extension")[0]))
-    assert set(out["loaded"]["mapped"].values()) == {sha256(asan)}
-    assert "binder_tpu._binderfastio" in out["loaded"]["modules"]
+    for run in out["runs"].values():
+        assert set(run["loaded"]["mapped"].values()) == {sha256(asan)}
+        assert list(run["loaded"]["modules"]) == [
+            "binder_torch._binderfastio"]
+
+
+def test_asan_step_fails_where_the_reference_loads(sanitizers, tmp_path):
+    # a sanitized case that imports binder_tpu without the marker
+    planted = tmp_path / "test_planted_reference.py"
+    planted.write_text("def test_planted():\n"
+                       "    import binder_tpu.dns.wire\n")
+    runs = {"port-0": (("tests/test_torch_fastio.py", str(planted)),
+                       ("-k", "TestBatchIO or planted"))}
+    with pytest.raises(check.CheckFailure) as err:
+        check.asan_step(runs)
+    said = str(err.value)
+    assert "port-0: the reference was loaded: ['binder_tpu'" in said
+    assert "binder_tpu.dns.wire" in said
 
 
 # -- planted defects --------------------------------------------------
@@ -265,8 +297,8 @@ def test_asan_step_fails_on_a_read_past_a_heap_block(
             "        return PyErr_NoMemory();\n"
             "    volatile char planted = ((const char *)c)[sizeof(*c)];\n"
             "    (void)planted;\n")
-    runs = {"reference": (("tests/test_fastpath.py",),
-                          ("--asan-reference",))}
+    runs = {"port-0": (("tests/test_torch_fastpath.py",),
+                       ("-k", "TestFastpathUnit"))}
     with pytest.raises(check.CheckFailure) as err:
         check.asan_step(runs)
     said = str(err.value)
@@ -316,15 +348,18 @@ def test_chip_smoke_check_phase_on_the_cpu(sanitizers):
     # the report carries what the smoke's ``check`` line prints
     import chip_smoke
     built = chip_smoke.native_phase(hosts=200, also=chip_smoke.check_builds())
-    runs = {"reference": (("tests/test_fastio.py",), ("--asan-reference",)),
-            "port-0": (("tests/test_torch_rrl_sampling.py",), ())}
+    runs = {"port-0": (("tests/test_torch_fastio.py",), ("-k",
+                                                         "TestBatchIO")),
+            "port-1": (("tests/test_torch_rrl_sampling.py",), ())}
     report = chip_smoke.make_check_phase(built["also_build_s"], (200, 50),
                                          runs)
     assert set(report["seconds"]) == {"werror", "fuzz", "asan"}
     assert set(report["build_s"]) == set(chip_smoke.check_builds()) - {
         "extension", "mbalancer", "instance_adjust"} | {"covhook"}
-    assert report["asan_passed"] == {"reference": 7, "port": 3}
-    assert report["asan"]["port-0"]["loaded"] == [
+    assert report["asan"]["passed"] == 10
+    assert report["asan"]["counterparts"]["tests/test_fastio.py"] == 7
+    assert report["asan"]["reference_modules"] == []
+    assert report["asan"]["runs"]["port-1"]["loaded"] == [
         "binder_torch._binderfastio"]
     assert all(r["reports"] == 0 for r in report["fuzz"].values())
     assert report["failed"] == []
@@ -351,7 +386,8 @@ def test_chip_smoke_check_phase_fails_after_every_step_ran(
     assert "fuzz_dnskey_cov" in built["also_build_s"]
     # the failed build left its directory empty
     os.rmdir(failed)
-    runs = {"reference": (("tests/test_fastio.py",), ("--asan-reference",))}
+    runs = {"port-0": (("tests/test_torch_fastio.py",), ("-k",
+                                                         "TestBatchIO"))}
     with pytest.raises(chip_smoke.PhaseError) as err:
         chip_smoke.make_check_phase(built["also_build_s"], (200, 50), runs)
     said = str(err.value)
@@ -363,4 +399,4 @@ def test_chip_smoke_check_phase_fails_after_every_step_ran(
     assert report["failed"] == ["werror"] and report["werror"] is None
     assert set(report["seconds"]) == {"werror", "fuzz", "asan"}
     assert all(r["reports"] == 0 for r in report["fuzz"].values())
-    assert report["asan_passed"] == {"reference": 7, "port": 0}
+    assert report["asan"]["passed"] == 7

@@ -12,6 +12,10 @@ byte-identical between the lanes; where the answer holds more than one
 record, the lanes rotate the records independently, so those replies
 compare by header and record set.
 
+``TestBatchIO`` holds the cases of the reference's
+``tests/test_fastio.py`` (``recv_batch``, ``send_batch``) on the
+port's build, under their names.
+
 The build itself: the cache key follows the sources, concurrent first
 use from several processes compiles once, and a failed build raises
 ``NativeBuildError`` (not ``ImportError``, which the serve modules
@@ -33,6 +37,7 @@ import socket
 import struct
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -292,6 +297,11 @@ async def degraded_during_fill():
                      "staleTtlClampSeconds": 5})
     await server.start()
     store.lose_session()
+    # the mirror's age is the test's, not the wall clock's: under ASan,
+    # beside other suites, the fill and the first window can take longer
+    # than the cap, and the first window must be asked inside it
+    age = [0.5]
+    store.disconnected_seconds = lambda: age[0]
     assert server._policy.mode() == "stale-serving"
     await server._zone_fill_task
     wires = [wire.make_query(host(i)[0], T.A, qid=i + 1).encode()
@@ -301,6 +311,8 @@ async def degraded_during_fill():
     try:
         for window in ("stale-serving", "stale-exhausted"):
             if window == "stale-exhausted":
+                age[0] = 1.1
+                # the server's 1 s policy ticker makes the transition
                 await asyncio.sleep(1.1)
             replies = await loop.run_in_executor(None, drive,
                                                  server.udp_port, "udp",
@@ -326,6 +338,105 @@ def test_zone_fill_serves_nothing_unclamped_while_degraded(monkeypatch):
         [r for r in stale if not r[1] or max(r[1]) > 5][:5]
     assert all(rcode == wire.Rcode.SERVFAIL and not ttls
                for rcode, ttls in exhausted)
+
+
+# -- the batched syscalls (the reference's tests/test_fastio.py) ---------
+
+
+def _udp_pair(host="127.0.0.1"):
+    fam = socket.AF_INET6 if ":" in host else socket.AF_INET
+    a = socket.socket(fam, socket.SOCK_DGRAM)
+    a.bind((host, 0))
+    a.setblocking(False)
+    b = socket.socket(fam, socket.SOCK_DGRAM)
+    b.bind((host, 0))
+    b.setblocking(False)
+    return a, b
+
+
+def _drain(sock, want, tries=50):
+    got = []
+    for _ in range(tries):
+        got += _binderfastio.recv_batch(sock.fileno(), 64)
+        if len(got) >= want:
+            break
+        time.sleep(0.01)
+    return got
+
+
+class TestBatchIO:
+    """The cases of the reference's ``tests/test_fastio.py``, each under
+    its name, on the port's build: ``recv_batch`` and ``send_batch``,
+    the contract the batched UDP reader of ``dns/server.py`` relies on."""
+
+    def test_roundtrip_ipv4(self):
+        a, b = _udp_pair()
+        dst = a.getsockname()
+        msgs = [(b"payload-%d" % i, (dst[0], dst[1])) for i in range(10)]
+        assert _binderfastio.send_batch(b.fileno(), msgs) == 10
+        got = _drain(a, 10)
+        assert [p for p, _ in got] == [p for p, _ in msgs]
+        # source addresses name b's bound port
+        assert all(addr == b.getsockname()[:2] for _, addr in got)
+        a.close(), b.close()
+
+    def test_roundtrip_ipv6(self):
+        a, b = _udp_pair("::1")
+        dst = a.getsockname()
+        assert _binderfastio.send_batch(
+            b.fileno(), [(b"six", (dst[0], dst[1]))]) == 1
+        got = _drain(a, 1)
+        assert got[0][0] == b"six"
+        assert got[0][1][0] == "::1"
+        a.close(), b.close()
+
+    def test_recv_empty_when_would_block(self):
+        a, _b = _udp_pair()
+        assert _binderfastio.recv_batch(a.fileno(), 64) == []
+        a.close(), _b.close()
+
+    def test_recv_respects_max_n(self):
+        a, b = _udp_pair()
+        dst = a.getsockname()[:2]
+        _binderfastio.send_batch(b.fileno(),
+                                 [(b"x%d" % i, dst) for i in range(8)])
+        time.sleep(0.05)
+        first = _binderfastio.recv_batch(a.fileno(), 3)
+        assert len(first) == 3
+        rest = _drain(a, 5)
+        assert len(first) + len(rest) == 8
+        a.close(), b.close()
+
+    def test_send_batch_over_64_chunks_internally(self):
+        a, b = _udp_pair()
+        dst = a.getsockname()[:2]
+        msgs = [(b"m%d" % i, dst) for i in range(150)]
+        sent = _binderfastio.send_batch(b.fileno(), msgs)
+        assert sent == 150
+        got = _drain(a, 150)
+        assert len(got) == 150
+        a.close(), b.close()
+
+    def test_send_batch_skips_bad_destination(self):
+        # one unreachable destination must not drop other clients'
+        # responses (port 0 fails at the first datagram with EINVAL,
+        # exercising the skip-and-continue branch in fastio.c)
+        a, b = _udp_pair()
+        dst = a.getsockname()[:2]
+        msgs = [(b"doomed", ("127.0.0.1", 0)), (b"fine-1", dst),
+                (b"fine-2", dst)]
+        assert _binderfastio.send_batch(b.fileno(), msgs) == 3
+        got = _drain(a, 2)
+        assert [p for p, _ in got] == [b"fine-1", b"fine-2"]
+        a.close(), b.close()
+
+    def test_send_batch_bad_args(self):
+        a, b = _udp_pair()
+        with pytest.raises(TypeError):
+            _binderfastio.send_batch(b.fileno(), [(b"x",)])
+        with pytest.raises(ValueError):
+            _binderfastio.send_batch(b.fileno(), [(b"x", ("not-an-ip", 1))])
+        a.close(), b.close()
 
 
 # -- the build ------------------------------------------------------------

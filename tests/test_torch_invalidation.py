@@ -13,7 +13,9 @@ lane (the reference has no C lane in this tree, and
 
 ``TestNativeTagInvalidation`` needs the extension, which only the port
 builds here: it runs on the port's ``_binderfastio`` and is held to
-the reference test's values.
+the reference test's values.  Every other case carries the
+``reference`` marker, and ``binder_tpu`` is imported only inside them,
+so that the port's ASan lane loads this module without it.
 """
 import asyncio
 import random
@@ -27,13 +29,6 @@ from binder_torch.metrics.collector import MetricsCollector as PortMetrics
 from binder_torch.resolver.answer_cache import AnswerCache as PortAnswers
 from binder_torch.store import FakeStore as PortStore
 from binder_torch.store import MirrorCache as PortCache
-from binder_tpu import server as ref_server
-from binder_tpu.dns import server as ref_dns_server
-from binder_tpu.dns import wire as ref_wire
-from binder_tpu.metrics.collector import MetricsCollector as RefMetrics
-from binder_tpu.resolver.answer_cache import AnswerCache as RefAnswers
-from binder_tpu.store import FakeStore as RefStore
-from binder_tpu.store import MirrorCache as RefCache
 from tests.test_torch_fastio import pin_python_lane
 
 DOMAIN = "foo.com"
@@ -44,16 +39,29 @@ class Side:
         self.__dict__.update(kw)
 
 
-SIDES = {
-    "port": Side(server=port_server, wire=port_wire, metrics=PortMetrics,
-                 answers=PortAnswers, store=PortStore, cache=PortCache),
-    "ref": Side(server=ref_server, wire=ref_wire, metrics=RefMetrics,
-                answers=RefAnswers, store=RefStore, cache=RefCache),
-}
+def sides():
+    """Each package's names; the reference is imported here, so that
+    the module loads without it (the port's ASan lane deselects the
+    ``reference`` cases and must not load ``binder_tpu``)."""
+    from binder_tpu import server as ref_server
+    from binder_tpu.dns import wire as ref_wire
+    from binder_tpu.metrics.collector import MetricsCollector as RefMetrics
+    from binder_tpu.resolver.answer_cache import AnswerCache as RefAnswers
+    from binder_tpu.store import FakeStore as RefStore
+    from binder_tpu.store import MirrorCache as RefCache
+    return {
+        "port": Side(server=port_server, wire=port_wire,
+                     metrics=PortMetrics, answers=PortAnswers,
+                     store=PortStore, cache=PortCache),
+        "ref": Side(server=ref_server, wire=ref_wire, metrics=RefMetrics,
+                    answers=RefAnswers, store=RefStore, cache=RefCache),
+    }
 
 
 @pytest.fixture
 def python_lane(monkeypatch):
+    from binder_tpu import server as ref_server
+    from binder_tpu.dns import server as ref_dns_server
     pin_python_lane(monkeypatch, (port_server, port_dns_server),
                     (ref_server, ref_dns_server))
 
@@ -61,7 +69,7 @@ def python_lane(monkeypatch):
 def both(scenario, run=lambda x: x):
     """``scenario(side)`` on both packages; asserts equal observations
     and returns the port's."""
-    got = {name: run(scenario(s)) for name, s in SIDES.items()}
+    got = {name: run(scenario(s)) for name, s in sides().items()}
     assert got["port"] == got["ref"]
     return got["port"]
 
@@ -121,6 +129,7 @@ def shape(r):
 # -- TestAnswerCacheTags ----------------------------------------------
 
 
+@pytest.mark.reference
 def test_invalidate_tag_drops_only_matching():
     def scenario(s):
         c = s.answers()
@@ -134,6 +143,7 @@ def test_invalidate_tag_drops_only_matching():
     assert both(scenario) == (2, None, "v2", None, 0)
 
 
+@pytest.mark.reference
 def test_eviction_keeps_tag_index_consistent():
     def scenario(s):
         c = s.answers(size=2)
@@ -145,6 +155,7 @@ def test_eviction_keeps_tag_index_consistent():
     assert both(scenario) == (2, 0, 0)
 
 
+@pytest.mark.reference
 def test_epoch_mismatch_still_drops():
     def scenario(s):
         c = s.answers()
@@ -169,6 +180,7 @@ def collect(s, mutations):
     return seen
 
 
+@pytest.mark.reference
 def test_data_change_emits_name_parent_and_both_rev_names():
     seen = both(lambda s: collect(s, lambda st: st.put_json(
         "/com/foo/web", {"type": "host", "host": {"address": "10.9.9.9"}})))
@@ -176,12 +188,14 @@ def test_data_change_emits_name_parent_and_both_rev_names():
             "9.9.9.10.in-addr.arpa"} <= set().union(*seen)
 
 
+@pytest.mark.reference
 def test_child_creation_emits_parent_and_child():
     seen = both(lambda s: collect(s, lambda st: st.put_json(
         "/com/foo/api", {"type": "host", "host": {"address": "10.4.4.4"}})))
     assert {"api.foo.com", "foo.com"} <= set().union(*seen)
 
 
+@pytest.mark.reference
 def test_delete_emits_name_parent_and_rev():
     seen = both(lambda s: collect(s, lambda st: st.delete("/com/foo/web")))
     assert {"web.foo.com", "foo.com",
@@ -191,6 +205,7 @@ def test_delete_emits_name_parent_and_rev():
 # -- TestSelectiveInvalidation ----------------------------------------
 
 
+@pytest.mark.reference
 def test_unrelated_mutation_keeps_cache_hot(python_lane):
     async def scenario(s):
         store, cache, server = build(s)
@@ -216,6 +231,7 @@ def test_unrelated_mutation_keeps_cache_hot(python_lane):
     assert hits == 1      # still a cache hit after 50 mutations
 
 
+@pytest.mark.reference
 def test_mutated_name_served_fresh_others_stay_cached(python_lane):
     async def scenario(s):
         store, cache, server = build(s)
@@ -247,6 +263,7 @@ def test_mutated_name_served_fresh_others_stay_cached(python_lane):
     assert n_srv == 4
 
 
+@pytest.mark.reference
 def test_service_child_add_refreshes_parent_answers(python_lane):
     async def scenario(s):
         store, cache, server = build(s)
@@ -274,6 +291,7 @@ def test_service_child_add_refreshes_parent_answers(python_lane):
         [f"10.0.1.{i + 1}" for i in range(4)] + ["10.0.1.99"]))]
 
 
+@pytest.mark.reference
 def test_session_rebuild_epoch_drops_everything(python_lane):
     async def scenario(s):
         store, cache, server = build(s)
@@ -327,6 +345,7 @@ def test_fastpath_invalidate_by_tag():
 # -- TestDifferentialChurn --------------------------------------------
 
 
+@pytest.mark.reference
 def test_service_and_ptr_churn_never_serves_stale(python_lane):
     """Service-shaped churn: load_balancer children come and go under a
     service node while SRV, rotated A and PTR queries interleave; every
@@ -400,6 +419,7 @@ def test_service_and_ptr_churn_never_serves_stale(python_lane):
     assert len(steps) == 200
 
 
+@pytest.mark.reference
 def test_random_churn_never_serves_stale(python_lane):
     """Randomized soak: every answer reflects the store state at query
     time (the fake store delivers watches synchronously)."""

@@ -28,6 +28,8 @@ import subprocess
 import sys
 import time
 
+import pytest
+
 from binder_torch import _binderfastio as fastio
 from binder_torch.dns import Message, Rcode, Type, make_query
 from binder_torch.metrics.collector import MetricsCollector
@@ -394,6 +396,7 @@ def comparable(line):
     return out
 
 
+@pytest.mark.reference
 def test_query_log_lines_equal_the_reference(tmp_path):
     wires = [make_query(name, qtype, qid=1000 + k,
                         edns_payload=edns).encode()

@@ -288,6 +288,7 @@ def test_chip_smoke_topology_phase_on_the_cpu():
     report = json.loads(next(x for x in lines
                              if x.startswith('{"topology"')))["topology"]
     assert report["errors"] == 0 and report["left_after_stop"] == []
+    assert report["host_cpus"] == len(os.sched_getaffinity(0))
     assert report["udp_answered"] == 3000
     assert report["status_online"] == 3
     assert report["metric_ports"] == [report["base_port"] + 1000,
@@ -301,5 +302,72 @@ def test_chip_smoke_topology_phase_on_the_cpu():
     for backend in report["per_backend"]:
         assert backend["log_lines"] == backend["completed"] > 0
         assert backend["c_zone_hits"] + backend["c_cache_hits"] > 0
+    # the 1 Hz series from the stream's start to the restored backend
+    # serving: each second's client counts, per-process busy shares,
+    # per-backend completions and the balancer's forwards, and the
+    # summary that names a saturated process
+    rows, summary = report["series"], report["series_summary"]
+    assert rows and all(r["lost"] == 0 for r in rows)
+    assert {"balancer", "zk", "smoke", "backend0"} <= \
+        set(summary["busy_max"])
+    assert sum(sum(x or 0 for x in r["completed"]) for r in rows) > 0
+    assert any(r.get("forwarded") for r in rows)
+    assert summary["kill_s"] < summary["restored_s"]
+    assert summary["lost"] == 0 and "saturated" in summary
     got = json.loads(lines[-1])
     assert got["answered"] == 3000 and got["left"] == []
+
+
+def test_topology_series_arithmetic():
+    # three readings: backend 1 (the victim) killed after the first and
+    # restarted with fresh counters by the third; the balancer's stats
+    # missing from the second; the churn's acknowledgements beside them
+    import chip_smoke
+
+    def reading(answered, retries, lost, cpu, completed, sessions,
+                forwarded, healthy):
+        return {"client": {"answered": answered, "retries": retries,
+                           "lost": lost},
+                "cpu": cpu,
+                "backends": {k: {"completed": c, "zk_connected": 1.0,
+                                 "zk_sessions": sessions[k],
+                                 "rebuilds": 0.0, "zk_outstanding": 0.0,
+                                 "degraded": 0.0, "stalls": 0.0,
+                                 "lag_max": 0.01}
+                             for k, c in completed.items()},
+                "balancer": None if forwarded is None else {
+                    "forwarded": forwarded, "healthy": healthy,
+                    "udp_queries": sum(forwarded.values()), "drops": 0,
+                    "wq_overflows": 0, "backend_stalls": 0}}
+    points = [
+        (100.0, reading(0, 0, 0, {"balancer": 1.0, "backend1": 5.0},
+                        {0: 10.0, 1: 20.0}, {0: 1.0, 1: 1.0},
+                        {0: 10, 1: 20}, {0: True, 1: True})),
+        (101.0, reading(900, 4, 0, {"balancer": 1.95, "backend1": 5.5},
+                        {0: 400.0}, {0: 1.0, 1: 1.0},
+                        {0: 410, 1: 24}, {0: True, 1: False})),
+        (102.0, reading(1900, 4, 1, {"balancer": 2.9, "backend1": 0.4},
+                        {0: 900.0, 1: 3.0}, {0: 1.0, 1: 1.0},
+                        None, None)),
+    ]
+    rows, summary = chip_smoke.topology_series(
+        points, 2, 99.5, kill_at=100.5, restored_at=101.8,
+        acks=[[101, 500, 0.8, 9.0], [102, 480, 1.1, 30.0]],
+        victim_forwarded_at_kill=21)
+    assert [r["t"] for r in rows] == [1.5, 2.5]
+    assert [r["answered_per_s"] for r in rows] == [900.0, 1000.0]
+    assert rows[0]["completed"] == [390.0, None]
+    # the restarted backend's counters count again from zero
+    assert rows[1]["completed"] == [500.0, None] and \
+        rows[1]["zk_sessions"][1] is None
+    assert rows[0]["busy"] == {"balancer": 0.95, "backend1": 0.5}
+    assert rows[1]["busy"] == {"balancer": 0.95}
+    assert rows[0]["forwarded"] == [400, 4] and "forwarded" not in rows[1]
+    assert (rows[1]["acks"], rows[1]["ack_max_ms"]) == (480, 30.0)
+    assert summary["answered_per_s"] == [900.0, 950.0, 1000.0]
+    assert summary["saturated"] == ["balancer"]
+    assert (summary["retries"], summary["lost"]) == (4, 1)
+    # the balancer dealt the dead backend 3 more after the kill
+    assert summary["victim_forwarded_while_down"] == 3
+    assert summary["kill_s"] == 1.0
+    assert summary["restored_s"] == pytest.approx(2.3)

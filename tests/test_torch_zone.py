@@ -22,6 +22,12 @@ Layers here:
 - after events (``TestZoneAfterEvents``, the port's own): what the zone
   lane serves for an unchanged name after a session rebuild and after a
   degradation cycle, the same on both packages.
+
+The parity classes carry the ``reference`` marker and import
+``binder_tpu`` only inside their fixtures.  ``test_case_on_the_port_alone``
+runs each of their scenarios on the port alone, with every value it
+asserts: the form the port's ``make check`` runs under ASan, where no
+reference module may load.
 """
 import asyncio
 import importlib.util
@@ -34,18 +40,12 @@ import struct
 import pytest
 
 import binder_torch.dns as port_dns
-import binder_tpu.dns as ref_dns
 from binder_torch import _binderfastio as port_fastio
 from binder_torch import fastio_build
 from binder_torch import server as port_server
 from binder_torch.metrics.collector import MetricsCollector as PortMetrics
 from binder_torch.store import FakeStore as PortStore
 from binder_torch.store import MirrorCache as PortCache
-from binder_tpu import server as ref_server
-from binder_tpu.dns import server as ref_dns_server
-from binder_tpu.metrics.collector import MetricsCollector as RefMetrics
-from binder_tpu.store import FakeStore as RefStore
-from binder_tpu.store import MirrorCache as RefCache
 
 DOMAIN = "foo.com"
 SEED = 7
@@ -88,6 +88,8 @@ def ref_extension(tmp_path_factory):
 @pytest.fixture
 def ref_lane(monkeypatch, ref_extension):
     """``binder_tpu`` on the C lane for the test."""
+    from binder_tpu import server as ref_server
+    from binder_tpu.dns import server as ref_dns_server
     monkeypatch.setattr(ref_server, "_fastio", ref_extension)
     monkeypatch.setattr(ref_dns_server, "_fastio", ref_extension)
     for attr, entry in SERVE_ENTRIES.items():
@@ -101,10 +103,15 @@ def both(ref_lane):
     """``both(scenario)`` runs ``await scenario(side)`` on each package
     and asserts that the two recorded the same answers and zone-hit
     deltas."""
+    import binder_tpu.dns as ref_dns
+    from binder_tpu import server as ref_server
+    from binder_tpu.metrics.collector import MetricsCollector as RefMetrics
+    from binder_tpu.store import FakeStore as RefStore
+    from binder_tpu.store import MirrorCache as RefCache
+
     def run(scenario):
         sides = {
-            "port": Side(port_dns, port_server, PortMetrics, PortStore,
-                         PortCache, port_fastio),
+            "port": port_side(),
             "ref": Side(ref_dns, ref_server, RefMetrics, RefStore,
                         RefCache, ref_lane),
         }
@@ -113,6 +120,19 @@ def both(ref_lane):
         assert sides["port"].seen, "the scenario recorded nothing"
         assert sides["port"].seen == sides["ref"].seen
     return run
+
+
+def port_side():
+    return Side(port_dns, port_server, PortMetrics, PortStore, PortCache,
+                port_fastio)
+
+
+def port_alone(scenario):
+    """``both``'s stand-in for the port alone: ``await scenario(side)``
+    on ``binder_torch``, with every value the scenario asserts."""
+    side = port_side()
+    asyncio.run(scenario(side))
+    assert side.seen, "the scenario recorded nothing"
 
 
 def fixture_store(s):
@@ -229,6 +249,7 @@ def probes(s):
     ]
 
 
+@pytest.mark.reference
 class TestZoneDifferential:
     def test_zone_answers_equal_generic_and_never_reach_python(self, both):
         """Byte-differential: for every probe shape the zone-enabled
@@ -480,6 +501,7 @@ class TestZoneDifferential:
         both(run)
 
 
+@pytest.mark.reference
 class TestZoneCoherence:
     def test_mutation_repoints_zone_answer(self, both):
         """A store mutation must re-point the precompiled answer (drop
@@ -645,6 +667,7 @@ class TestZoneCoherence:
         both(run)
 
 
+@pytest.mark.reference
 class TestZoneChurnSoak:
     def test_randomized_churn_read_your_writes(self, both):
         """Randomized mutation soak over the live UDP stack with the
@@ -733,6 +756,7 @@ class TestZoneChurnSoak:
         both(run)
 
 
+@pytest.mark.reference
 class TestServeWireLanes:
     def test_tcp_lane_served_natively(self, both):
         """TCP queries for precompiled shapes are answered by
@@ -797,6 +821,7 @@ class TestServeWireLanes:
         both(run)
 
 
+@pytest.mark.reference
 class TestTruncationNotReplayedOverTcp:
     def test_tc_cached_udp_response_not_served_to_tcp(self, both):
         """An oversize answer set truncates for a no-EDNS UDP client
@@ -849,6 +874,7 @@ class TestTruncationNotReplayedOverTcp:
         both(run)
 
 
+@pytest.mark.reference
 class TestZoneEpochRebuild:
     def test_session_rebuild_repoints_zone_via_epoch(self, both):
         """A (re)session rebuild bumps the mirror epoch: pre-rebuild
@@ -889,6 +915,7 @@ class TestZoneEpochRebuild:
         both(run)
 
 
+@pytest.mark.reference
 class TestZoneDatabaseAndBalancerLane:
     def test_database_record_zone_served_differentially(self, both):
         """Database records (A from the primary URL's hostname,
@@ -971,6 +998,7 @@ class TestZoneDatabaseAndBalancerLane:
         both(run)
 
 
+@pytest.mark.reference
 class TestZoneAfterEvents:
     def test_unchanged_name_leaves_the_zone_after_a_rebuild_and_a_cycle(
             self, both):
@@ -1034,3 +1062,21 @@ class TestZoneAfterEvents:
                 await server.stop()
 
         both(run)
+
+
+#: every scenario above, by class and name
+PARITY_CLASSES = (TestZoneDifferential, TestZoneCoherence,
+                  TestZoneChurnSoak, TestServeWireLanes,
+                  TestTruncationNotReplayedOverTcp, TestZoneEpochRebuild,
+                  TestZoneDatabaseAndBalancerLane, TestZoneAfterEvents)
+CASES = [(cls, name) for cls in PARITY_CLASSES for name in vars(cls)
+         if name.startswith("test_")]
+
+
+@pytest.mark.parametrize("cls, name", CASES,
+                         ids=[f"{cls.__name__}.{name}" for cls, name in CASES])
+def test_case_on_the_port_alone(cls, name):
+    """Each scenario above on ``binder_torch`` alone, with the values
+    of the reference test it asserts: what the port's ``make check``
+    runs under ASan, where the reference is not loaded."""
+    getattr(cls(), name)(port_alone)
