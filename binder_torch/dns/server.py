@@ -31,6 +31,7 @@ from typing import Callable, List, Optional, Tuple
 from binder_torch.dns.query import QueryCtx
 from binder_torch.dns.stream import TcpConn, TcpStats
 from binder_torch.dns.wire import Message, OPTRecord, Rcode, WireError
+from binder_torch.introspect.loopacct import ACCOUNT
 
 try:  # batched recvmmsg/sendmmsg datapath (built by `make -C native`)
     from binder_torch import _binderfastio as _fastio
@@ -1045,7 +1046,23 @@ class DnsServer:
                     return
             late_out.append((wire, addr))
 
+        # loop accounting (introspect/loopacct.py): one ``udp`` span a
+        # readiness event, its children timed once a call or a batch
+        acct_begin, acct_end = ACCOUNT.begin, ACCOUNT.end
+        act_udp, act_clane, act_python, act_send = (
+            ACCOUNT.activity(n) for n in ("udp", "udp.clane", "udp.python",
+                                          "udp.send"))
+
         def on_readable() -> None:
+            acct_begin(act_udp)
+            drained = 0
+            try:
+                drained = drain()
+            finally:
+                # a stall's cause: the datagrams this event drained
+                acct_end(drained)
+
+        def drain() -> int:
             out: list = []
             batch_out[0] = out
             # fast path on/off is decided once per readiness event — the
@@ -1056,8 +1073,8 @@ class DnsServer:
                            or self.fastpath_gate()))
             fp_gen = self.fastpath_gen
             rrl = self.rrl
+            drained = 0
             try:
-                drained = 0
                 while drained < burst:
                     served = 0
                     want = 64
@@ -1069,8 +1086,13 @@ class DnsServer:
                         if use_fp and not sample:
                             if rrl is not None:
                                 want = min(want, rrl_credit[0])
-                            msgs, served = fp_drain(
-                                fp, fd, fp_gen() if fp_gen else 0, want)
+                            acct_begin(act_clane)
+                            try:
+                                msgs, served = fp_drain(
+                                    fp, fd, fp_gen() if fp_gen else 0,
+                                    want)
+                            finally:
+                                acct_end()
                             if rrl is not None:
                                 rrl_credit[0] -= len(msgs) + served
                         else:
@@ -1086,6 +1108,8 @@ class DnsServer:
                         if sample:
                             rrl_credit[0] += (every - 1) * len(msgs)
                     drained += len(msgs) + served
+                    if msgs:
+                        acct_begin(act_python)
                     for data, addr in msgs:
                         def send(wire: bytes, _addr=addr) -> None:
                             cur = batch_out[0]
@@ -1102,6 +1126,8 @@ class DnsServer:
                             # flush of other clients' responses
                             log.exception("unhandled error processing "
                                           "packet from %s", addr)
+                    if msgs:
+                        acct_end()
                     if len(msgs) + served < want:
                         break
                     if sample and rrl.hot():
@@ -1116,6 +1142,7 @@ class DnsServer:
                 # never lost to an unexpected escape above
                 batch_out[0] = None
                 if out:
+                    acct_begin(act_send)
                     try:
                         sent = send_batch(fd, out)
                         if sent < len(out):
@@ -1130,12 +1157,15 @@ class DnsServer:
                                           len(out) - sent)
                     except OSError as e:
                         log.error("batched UDP send failed: %s", e)
+                    finally:
+                        acct_end()
                 log_flush = self.fastpath_log_flush
                 if use_fp and log_flush is not None:
                     try:
                         log_flush()
                     except Exception:
                         log.exception("query-log ring drain failed")
+            return drained
 
         return on_readable
 
@@ -1190,7 +1220,8 @@ class DnsServer:
             # socket behind
             lsock.close()
             raise
-        loop.add_reader(lsock.fileno(), self._on_accept_ready, lsock,
+        loop.add_reader(lsock.fileno(),
+                        ACCOUNT.wrap("tcp", self._on_accept_ready), lsock,
                         loop)
         self._tcp_listeners.append((loop, lsock))
         if self._tcp_sweep_handle is None and self.tcp_idle_timeout:

@@ -45,10 +45,17 @@ from __future__ import annotations
 import socket
 import struct
 
+from binder_torch.introspect.loopacct import ACCOUNT
+
 #: scatter-gather ceiling per sendmsg (POSIX IOV_MAX is 1024 on Linux);
 #: a flush carrying more frames sends the first window and lets the
 #: short-write tail logic queue the rest
 _IOV_MAX = 1024
+
+
+def _tcp(callback):
+    """``callback`` as one ``tcp`` span of loop accounting a call."""
+    return ACCOUNT.wrap("tcp", callback)
 
 
 class TcpStats:
@@ -122,7 +129,7 @@ class TcpConn:
         # iteration (accept → read → serve → vectored write)
         self._on_readable()
         if not self.closed and not self.eof and not self.reader_on:
-            self.loop.add_reader(self.fd, self._on_readable)
+            self.loop.add_reader(self.fd, _tcp(self._on_readable))
             self.reader_on = True
 
     # -- read side --
@@ -299,7 +306,7 @@ class TcpConn:
             # write — upstream answers arrive in batches, so their
             # completions cluster in one pass
             self.flush_scheduled = True
-            self.loop.call_soon(self._flush_cb)
+            self.loop.call_soon(_tcp(self._flush_cb))
 
     def _flush_cb(self) -> None:
         self.flush_scheduled = False
@@ -372,7 +379,7 @@ class TcpConn:
         out.clear()
         self.wbuf = tail
         if not self.writer_on:
-            self.loop.add_writer(self.fd, self._on_writable)
+            self.loop.add_writer(self.fd, _tcp(self._on_writable))
             self.writer_on = True
         self._enforce_write_cap()
 

@@ -26,11 +26,15 @@ DEFAULT_LAG_BUCKETS = (
 
 METRIC_LOOP_LAG = "binder_loop_lag_seconds"
 
+#: lag at which a sample is a stall (a ``loop-stall`` event); the loop
+#: accountant's ``long-callback`` events use the same threshold
+DEFAULT_STALL_THRESHOLD_S = 0.25
+
 
 class LoopLagWatchdog:
     def __init__(self, collector=None, recorder=None,
                  interval: float = 0.1,
-                 stall_threshold: float = 0.25) -> None:
+                 stall_threshold: float = DEFAULT_STALL_THRESHOLD_S) -> None:
         self.interval = interval
         self.stall_threshold = stall_threshold
         self.recorder = recorder

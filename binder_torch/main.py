@@ -14,11 +14,14 @@ import logging
 import os
 import signal
 import sys
+import threading
+import time
 from typing import Dict
 
 from binder_torch.config.options import ConfigError, parse_options
 from binder_torch.introspect import (BalancerStatsFold, FlightRecorder,
                                      Introspector, LoopLagWatchdog)
+from binder_torch.introspect.loopacct import ACCOUNT
 from binder_torch.metrics.collector import MetricsCollector, MetricsServer
 from binder_torch.server import BinderServer
 from binder_torch.store import FakeStore, MirrorCache
@@ -109,6 +112,9 @@ async def run_supervisor(options: Dict[str, object]):
 
     recorder = FlightRecorder(
         capacity=int(options.get("flightRecorderSize", 512)), log=log)
+    # loop accounting and boot phases (docs/observability.md), from
+    # before the store session opens
+    ACCOUNT.bind(collector, recorder)
     store = make_store(options, log, collector=collector,
                        recorder=recorder)
     cache = MirrorCache(store, str(options["dnsDomain"]), log=log,
@@ -246,11 +252,20 @@ async def run(options: Dict[str, object]) -> BinderServer:
         # lives in the supervisor; this process replays the mutation
         # log (snapshot now, deltas once the loop runs)
         from binder_torch.shard import ReplicaStore
-        from binder_torch.shard.protocol import SHARD_FD_ENV
+        from binder_torch.shard.protocol import (SHARD_FD_ENV,
+                                                 SHARD_SPAWNED_ENV)
+        ACCOUNT.bind(collector, recorder)
+        spawned = float(os.environ.get(SHARD_SPAWNED_ENV,
+                                       time.monotonic()))
         fd = int(os.environ[SHARD_FD_ENV])
         store = ReplicaStore.from_fd(fd, int(shard_worker),
                                      recorder=recorder, log=log)
         nodes = store.read_snapshot()
+        # boot phase ``replay``: spawn to the snapshot applied; all of
+        # the process's CPU so far (its imports included)
+        ACCOUNT.boot_phase("replay", spawned, time.monotonic(),
+                           time.process_time())
+        serving = ACCOUNT.phase_start()
         log.info("shard %d: snapshot applied (%d node(s))",
                  shard_worker, nodes)
     else:
@@ -374,6 +389,10 @@ async def run(options: Dict[str, object]) -> BinderServer:
     # introspection handle (/status federation section, bstat line)
     server.federation = federation
     await server.start()
+    if shard_worker is not None:
+        # boot phase ``serving``: the serve stack built over the replica
+        # and its sockets bound
+        ACCOUNT.phase_end("serving", serving)
 
     if len(cache.nodes) > 100_000:
         # large zones: the mirror is millions of long-lived objects; a
@@ -488,23 +507,39 @@ def _wire_shard_worker(server: BinderServer, store, metrics, collector,
         shard, os.getpid(), server.udp_port, server.tcp_port,
         metrics.port))
     requests = collector.counter("binder_requests_completed")
+    frames = collector.counter(
+        "binder_replica_frames_applied_total",
+        "mutation-log frames (deltas, digests, session state) the "
+        "replica applied").labelled()
+    frames_folded = [0]
+    fold_lock = threading.Lock()
+
+    def fold_frames():
+        # scrapes run on the metrics server's threads
+        with fold_lock:
+            n = store.frames_applied
+            frames.inc(n - frames_folded[0])
+            frames_folded[0] = n
+
+    collector.on_expose(fold_frames)
+    act_stats = ACCOUNT.activity("stats")
 
     async def stats_loop():
         while True:
             await asyncio.sleep(1.0)
+            ACCOUNT.begin(act_stats)
             try:
                 collector.fold()   # natively counted serves included
                 rrl = getattr(server, "_rrl", None)
-                adm = getattr(server, "_admission", None)
                 store.send(protocol.stats_frame(
                     requests.total(), server.zk_cache.gen,
                     server.zk_cache.epoch, server.zk_cache.is_ready(),
                     len(server.engine.inflight),
-                    rrl_dropped=(rrl.dropped if rrl is not None else 0),
-                    shed=(sum(adm.shed_counts.values())
-                          if adm is not None else 0)))
+                    rrl_dropped=(rrl.dropped if rrl is not None else 0)))
             except Exception:
                 log.exception("shard stats report failed")
+            finally:
+                ACCOUNT.end()
 
     server._shard_stats_task = loop.create_task(stats_loop())
 
@@ -547,8 +582,12 @@ def main(argv=None) -> None:
         await run(options)
         await asyncio.Event().wait()  # serve forever
 
+    # shard mode accounts the loop's own wait in its selector too
+    # (docs/observability.md "Loop accounting")
+    sharded = (options.get("shardWorker") is not None
+               or resolve_shard_count(options) >= 1)
     try:
-        asyncio.run(_run())
+        asyncio.run(_run(), loop_factory=ACCOUNT.loop if sharded else None)
     except KeyboardInterrupt:
         pass
     except ConfigError as e:

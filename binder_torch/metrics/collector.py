@@ -33,6 +33,14 @@ DEFAULT_STAGE_BUCKETS = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0)
 
 
+def _fmt_value(v: float) -> str:
+    """A sample's value: the short ``%g`` form where it is exact, else
+    every digit (a CLOCK_MONOTONIC timestamp or a running CPU total
+    would lose its fraction to six significant digits)."""
+    short = f"{v:g}"
+    return short if float(short) == v else repr(float(v))
+
+
 def _labels_key(labels: Optional[Dict[str, str]]) -> Tuple[Tuple[str, str], ...]:
     if not labels:
         return ()
@@ -92,7 +100,8 @@ class Counter:
         lines = [f"# HELP {self.name} {self.help}",
                  f"# TYPE {self.name} counter"]
         for key, v in sorted(self._values.items()):
-            lines.append(f"{self.name}{_fmt_labels(static + key)} {v:g}")
+            lines.append(f"{self.name}{_fmt_labels(static + key)} "
+                         f"{_fmt_value(v)}")
         return "\n".join(lines)
 
 
@@ -139,7 +148,8 @@ class Gauge:
                 except Exception:  # noqa: BLE001 — one bad sampler must
                     continue       # not take down the whole scrape
         for key, v in sorted(merged.items()):
-            lines.append(f"{self.name}{_fmt_labels(static + key)} {v:g}")
+            lines.append(f"{self.name}{_fmt_labels(static + key)} "
+                         f"{_fmt_value(v)}")
         return "\n".join(lines)
 
 
@@ -225,7 +235,7 @@ class Histogram:
             lines.append(f"{self.name}_bucket"
                          f"{_fmt_labels(full, inf)} {total}")
             lines.append(f"{self.name}_sum{_fmt_labels(full)} "
-                         f"{self._sums.get(key, 0.0):g}")
+                         f"{_fmt_value(self._sums.get(key, 0.0))}")
             lines.append(f"{self.name}_count{_fmt_labels(full)} {total}")
         return "\n".join(lines)
 

@@ -56,6 +56,11 @@ from binder_torch.dns.wire import (
     Type,
     WireError,
 )
+from binder_torch.introspect.loopacct import ACCOUNT
+
+#: the loop-accounting activity (introspect/loopacct.py) of the seed's
+#: chunks
+_ACT_SEED = ACCOUNT.activity("boot.seed")
 
 #: the EDNS echo appended to every EDNS response (identical instance
 #: semantics to QueryCtx._ECHO_OPT: payload ceiling 1232, at the HEAD of
@@ -289,6 +294,7 @@ class Precompiler:
         return (item, self._pending.pop(item),
                 self._pending_trace.pop(item, None))
 
+    @ACCOUNT.spans("precompile")
     def _drain(self) -> None:
         self._drain_scheduled = False
         n = 0
@@ -328,8 +334,10 @@ class Precompiler:
             loop = None
         if loop is None \
                 or len(self.zk_cache.nodes) <= self.SEED_INLINE_MAX:
+            started = ACCOUNT.phase_start()
             for domain in list(self.zk_cache.nodes):
                 self._seed_one(domain)
+            ACCOUNT.phase_end("seed", started)
             return
         self._seed_task = loop.create_task(self._seed_chunked())
 
@@ -358,17 +366,25 @@ class Precompiler:
         self._seed_remaining = len(domains)
         self.log.info("precompile seed: %d names, chunked", len(domains))
         started = time.perf_counter()
+        phase = ACCOUNT.phase_start()
+        cpu_ns = 0
         i = 0
         while i < len(domains):
             t0 = time.perf_counter()
-            while i < len(domains) \
-                    and time.perf_counter() - t0 < self.DRAIN_BUDGET_S:
-                self._seed_one(domains[i])
-                i += 1
+            ACCOUNT.begin(_ACT_SEED)
+            try:
+                while i < len(domains) \
+                        and time.perf_counter() - t0 < self.DRAIN_BUDGET_S:
+                    self._seed_one(domains[i])
+                    i += 1
+            finally:
+                cpu_ns += ACCOUNT.end()
             self._seed_remaining = len(domains) - i
             await asyncio.sleep(0)
         self.log.info("precompile seed done: %d names in %.1fs",
                       len(domains), time.perf_counter() - started)
+        # the seed shares the loop with serving: its CPU is its chunks'
+        ACCOUNT.phase_end("seed", phase, cpu_s=cpu_ns / 1e9)
 
     # -- one item: plan → render variants → install --
 

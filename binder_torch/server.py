@@ -60,6 +60,7 @@ from binder_torch.resolver.engine import (
 from binder_torch.utils.jsonlog import JsonFormatter, log_event
 from binder_torch.utils.probes import ProbeProvider
 from binder_torch.verify import Verifier
+from binder_torch.introspect.loopacct import ACCOUNT
 
 METRIC_REQUEST_COUNTER = "binder_requests_completed"
 METRIC_LATENCY_HISTOGRAM = "binder_request_latency_seconds"
@@ -68,6 +69,10 @@ METRIC_SIZE_HISTOGRAM = "binder_response_size_bytes"
 # QueryCtx phase stamps at after-hook time — the scrapeable form of the
 # query log's `timers` dict (same stage names)
 METRIC_STAGE_HISTOGRAM = "binder_query_stage_seconds"
+
+#: the loop-accounting activity (introspect/loopacct.py) of the zone
+#: fill's chunks
+_ACT_ZONE_FILL = ACCOUNT.activity("boot.zone-fill")
 
 SLOW_QUERY_MS = 1000.0  # log at warn above this (lib/server.js:511-514)
 
@@ -898,6 +903,7 @@ class BinderServer:
         self._zone_drain_pending = True
         loop.call_soon(self._drain_zone_dirty)
 
+    @ACCOUNT.spans("zone-refresh")
     def _drain_zone_dirty(self) -> None:
         self._zone_drain_pending = False
         n = 0
@@ -1431,8 +1437,10 @@ class BinderServer:
             self._zone_fill_task = loop.create_task(
                 self._zone_fill_chunked())
             return
+        started = ACCOUNT.phase_start()
         for domain in list(nodes):
             self._zone_fill_one(domain)
+        ACCOUNT.phase_end("zone-fill", started)
 
     def _zone_fill_one(self, domain: str) -> None:
         node = self.zk_cache.nodes.get(domain)
@@ -1459,16 +1467,24 @@ class BinderServer:
         domains = list(self.zk_cache.nodes)
         self.log.info("zone fill: %d names, chunked", len(domains))
         started = time.perf_counter()
+        phase = ACCOUNT.phase_start()
+        cpu_ns = 0
         i = 0
         while i < len(domains):
             t0 = time.perf_counter()
-            while i < len(domains) \
-                    and time.perf_counter() - t0 < self._FILL_BUDGET_S:
-                self._zone_fill_one(domains[i])
-                i += 1
+            ACCOUNT.begin(_ACT_ZONE_FILL)
+            try:
+                while i < len(domains) \
+                        and time.perf_counter() - t0 < self._FILL_BUDGET_S:
+                    self._zone_fill_one(domains[i])
+                    i += 1
+            finally:
+                cpu_ns += ACCOUNT.end()
             await asyncio.sleep(0)
         self.log.info("zone fill done: %d names in %.1fs", len(domains),
                       time.perf_counter() - started)
+        # the fill shares the loop with serving: its CPU is its chunks'
+        ACCOUNT.phase_end("zone-fill", phase, cpu_s=cpu_ns / 1e9)
 
     def _fastpath_push(self, key, epoch: int, query: QueryCtx) -> None:
         """Promote an answer-cache entry to the native fast path (on
@@ -2050,6 +2066,7 @@ class BinderServer:
             return None
         return frag if 0 < len(frag) <= 4096 else None
 
+    @ACCOUNT.spans("udp.querylog")
     def _drain_native_log(self) -> None:
         """Write the ring's accumulated complete lines to the JSON log
         stream(s).  Called from the UDP drain loop (amortized over each

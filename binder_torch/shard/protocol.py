@@ -32,6 +32,9 @@ SHARD_PROTO_VERSION = 1
 
 #: env var carrying the worker's inherited socketpair fd
 SHARD_FD_ENV = "BINDER_SHARD_FD"
+#: the supervisor's ``time.monotonic()`` when it spawned the worker: the
+#: start of the worker's ``replay`` boot phase
+SHARD_SPAWNED_ENV = "BINDER_SHARD_SPAWNED"
 
 #: hard cap on one frame (a 1M-name snapshot ships as many small
 #: frames, never one big one; anything larger is a corrupt stream)
@@ -127,11 +130,12 @@ def hello_frame(shard: int, pid: int, udp_port: int, tcp_port: int,
 def stats_frame(requests: float, gen: int, epoch: int, ready: bool,
                 inflight: int, rrl_dropped: int = 0,
                 shed: int = 0) -> dict:
-    """1 Hz worker report.  ``rrl_dropped``/``shed`` (response-rate-
-    limit drops and total admission sheds, both monotonic per worker
-    incarnation) fold into ``binder_shard_rrl_dropped`` /
-    ``binder_shard_shed`` so a flood's per-shard spread is scrapeable
-    from the supervisor; older workers simply omit them (defaults)."""
+    """1 Hz worker report.  ``rrl_dropped`` (response-rate-limit
+    drops, monotonic per worker incarnation) folds into
+    ``binder_shard_rrl_dropped`` so a flood's per-shard spread is
+    scrapeable from the supervisor; older workers simply omit it (the
+    default).  ``shed`` stays in the frame for the wire's sake; no
+    port worker fills it and no supervisor reads it."""
     return {"op": "stats", "requests": requests, "gen": gen,
             "epoch": epoch, "ready": ready, "inflight": inflight,
             "rrl_dropped": rrl_dropped, "shed": shed}

@@ -39,10 +39,12 @@ import socket
 import time
 from typing import Callable, Optional
 
+from binder_torch.introspect.loopacct import ACCOUNT
 from binder_torch.shard import protocol
 from binder_torch.store.cache import domain_to_path
 from binder_torch.store.fake import FakeStore
 from binder_torch.store.names import intern_name
+from binder_torch.verify.tracer import trace_id
 
 
 class ShardLinkDown(Exception):
@@ -138,7 +140,12 @@ class ReplicaStore(FakeStore):
     def start(self, loop) -> None:
         self._loop = loop
         self._sock.setblocking(False)
-        loop.add_reader(self._sock.fileno(), self._on_readable)
+        # one ``feed`` span of loop accounting a read: decode, apply,
+        # bump_gen and the synchronous invalidation fan-out; a stall's
+        # cause is the propagation trace of the mutation applied last
+        loop.add_reader(self._sock.fileno(), ACCOUNT.wrap(
+            "feed", self._on_readable,
+            cause=lambda: trace_id(self.tracer)))
 
     def _on_readable(self) -> None:
         try:

@@ -56,9 +56,10 @@ import time
 from collections import deque
 from typing import Dict, List, Optional
 
+from binder_torch.introspect.loopacct import ACCOUNT
 from binder_torch.introspect.status import Introspector
 from binder_torch.shard import protocol
-from binder_torch.verify.tracer import PropagationTracer
+from binder_torch.verify.tracer import PropagationTracer, trace_id
 
 #: a worker whose stats are older than this is reported down
 #: (binder_shard_up 0) even if its PID still exists
@@ -82,15 +83,28 @@ ROLL_DRAIN_S = 10.0
 
 SUPERVISOR_SNAPSHOT_VERSION = 1
 
+#: how often the boot watch looks whether the owner mirror holds the
+#: tree (the end of the ``walk`` boot phase)
+WALK_POLL_S = 0.02
+
+#: loop-accounting activities (introspect/loopacct.py) of this module
+_ACT_FANOUT = ACCOUNT.activity("fanout")
+_ACT_ENCODE = ACCOUNT.activity("fanout.encode")
+_ACT_DIGEST = ACCOUNT.activity("fanout.digest")
+_ACT_FLUSH = ACCOUNT.activity("fanout.flush")
+_ACT_TICK = ACCOUNT.activity("tick")
+_ACT_SNAPSHOT = ACCOUNT.activity("boot.snapshot")
+
 
 class ShardLink:
     """Supervisor-side state for one worker incarnation."""
 
     __slots__ = ("shard", "proc", "sock", "wbuf", "writer_armed",
                  "hello", "stats", "stats_at", "last_requests",
-                 "last_rrl_dropped", "last_shed",
+                 "last_rrl_dropped",
                  "spawned_mono", "rbuf", "closed",
                  "snap_queue", "snap_sent", "snap_started",
+                 "snap_t0", "snap_cpu_ns", "snap_tail",
                  "dg", "skew_pending")
 
     def __init__(self, shard: int, proc: subprocess.Popen,
@@ -107,10 +121,9 @@ class ShardLink:
         # last raw requests figure this incarnation reported, for the
         # monotonic fold into binder_shard_requests across respawns
         self.last_requests = 0.0
-        # same per-incarnation baselines for the hostile-traffic fold
-        # (binder_shard_rrl_dropped / binder_shard_shed)
+        # same per-incarnation baseline for the hostile-traffic fold
+        # (binder_shard_rrl_dropped)
         self.last_rrl_dropped = 0.0
-        self.last_shed = 0.0
         self.spawned_mono = time.monotonic()
         self.closed = False
         # chunked attach-time snapshot state: the walk queue of owner
@@ -120,6 +133,12 @@ class ShardLink:
         self.snap_queue: Optional[object] = None
         self.snap_sent = 0
         self.snap_started = 0.0
+        # the ``snapshot`` boot phase: its start, the CPU of its pump
+        # passes, and the bytes up to snap-end still unsent (its end is
+        # the last of them leaving)
+        self.snap_t0 = 0.0
+        self.snap_cpu_ns = 0
+        self.snap_tail = 0
         # replica-parity digest: the owner-side rolling
         # digest over this link's post-snapshot delta stream (None
         # until snap-end), and the chaos `skew-replica` counter of
@@ -162,6 +181,10 @@ class ShardSupervisor:
         self._hello_futs: Dict[int, asyncio.Future] = {}
         self._draining = False
         self._tick_task: Optional[asyncio.Task] = None
+        # the ``walk`` boot phase: its start (the store session's first
+        # establishment) and the task that sees its end
+        self._walk_started: Optional[tuple] = None
+        self._walk_task: Optional[asyncio.Task] = None
         self._tmpdir: Optional[str] = None
         self._cfg_path: Optional[str] = None
         self._last_state: Optional[tuple] = None
@@ -190,6 +213,8 @@ class ShardSupervisor:
         # the owner mirror's per-name invalidation events ARE the
         # mutation log: every tag maps to a node upsert or removal
         cache.on_invalidate(self._on_invalidate)
+        getattr(store, "on_session", lambda cb: None)(
+            self._on_session_start)
         # federation membership rides the same log: the
         # owner watches /dcs exactly like DcRegistry does and fans
         # join/leave through as raw-path frames, so shard workers track
@@ -233,10 +258,11 @@ class ShardSupervisor:
         rrl_drops = c.counter("binder_shard_rrl_dropped",
                               "response-rate-limit drops per shard "
                               "(folded monotonically across respawns)")
-        shed = c.counter("binder_shard_shed",
-                         "queries shed by admission control per shard "
-                         "(all reasons, folded monotonically across "
-                         "respawns)")
+        self._m_fanout_events = c.counter(
+            "binder_shard_fanout_events_total",
+            "owner-mirror store events fanned out to the workers as "
+            "delta frames").labelled()
+        self._m_fanout_events.inc(0)
         rolls = c.counter("binder_shard_rolls_total",
                           "completed zero-downtime drain-and-replace "
                           "cycles per shard (rolling upgrade / config "
@@ -248,7 +274,6 @@ class ShardSupervisor:
         ).labelled()
         self._m_roll_aborts.inc(0)
         self._rrl_drop_children = {}
-        self._shed_children = {}
         self._roll_children = {}
         for i in range(self.n):
             labels = {"shard": str(i)}
@@ -267,9 +292,6 @@ class ShardSupervisor:
             dc = rrl_drops.labelled(labels)
             dc.inc(0)
             self._rrl_drop_children[i] = dc
-            sc = shed.labelled(labels)
-            sc.inc(0)
-            self._shed_children[i] = sc
             rlc = rolls.labelled(labels)
             rlc.inc(0)
             self._roll_children[i] = rlc
@@ -301,6 +323,7 @@ class ShardSupervisor:
         """Spawn shard 0 first (it resolves an ephemeral port draw for
         the whole reuseport group), then the rest concurrently."""
         self._loop = asyncio.get_running_loop()
+        self._walk_task = self._loop.create_task(self._watch_walk())
         self._tmpdir = tempfile.mkdtemp(prefix="binder-shards-")
         self._spawn(0, self.port)
         hello = await self._wait_hello(0)
@@ -322,6 +345,17 @@ class ShardSupervisor:
                       self.udp_port)
         self.log.info("TCP DNS service started on %s:%d", self.host,
                       self.tcp_port)
+
+    def _on_session_start(self) -> None:
+        if self._walk_started is None:
+            self._walk_started = ACCOUNT.phase_start()
+
+    async def _watch_walk(self) -> None:
+        """The ``walk`` boot phase: from the store session's first
+        establishment to the owner mirror holding the store's tree."""
+        while self._walk_started is None or not self.cache.synced():
+            await asyncio.sleep(WALK_POLL_S)
+        ACCOUNT.phase_end("walk", self._walk_started)
 
     async def _wait_hello(self, i: int, timeout: float = 30.0,
                           link: Optional[ShardLink] = None) -> dict:
@@ -369,6 +403,7 @@ class ShardSupervisor:
                 "--shard-worker", str(i)]
         env = dict(os.environ)
         env[protocol.SHARD_FD_ENV] = str(child.fileno())
+        env[protocol.SHARD_SPAWNED_ENV] = repr(time.monotonic())
         root = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
         env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
@@ -379,8 +414,8 @@ class ShardSupervisor:
             child.close()
         parent.setblocking(False)
         link = ShardLink(i, proc, parent)
-        self._loop.add_reader(parent.fileno(), self._on_worker_readable,
-                              link)
+        self._loop.add_reader(parent.fileno(), ACCOUNT.wrap(
+            "link-read", self._on_worker_readable), link)
         # attach-time snapshot: the worker replays this, then the
         # delta feed continues seamlessly on the same ordered stream
         self._send_snapshot(link)
@@ -492,13 +527,21 @@ class ShardSupervisor:
                 self._dcs_path + "/" + dc, self._dcs_records[dc]))
         link.snap_queue = deque()
         link.snap_sent = 0
-        link.snap_started = time.monotonic()
+        link.snap_started = link.snap_t0 = time.monotonic()
+        link.snap_cpu_ns = 0
         root = self.cache.nodes.get(self.cache.domain)
         if root is not None:
             link.snap_queue.append(root)
         self._pump_snapshot(link)
 
     def _pump_snapshot(self, link: ShardLink) -> None:
+        ACCOUNT.begin(_ACT_SNAPSHOT)
+        try:
+            self._pump_snapshot_pass(link)
+        finally:
+            link.snap_cpu_ns += ACCOUNT.end()
+
+    def _pump_snapshot_pass(self, link: ShardLink) -> None:
         q = link.snap_queue
         if link.closed or q is None:
             return
@@ -531,6 +574,16 @@ class ShardSupervisor:
         # interleaved with the snapshot stayed unhashed on both ends
         link.dg = "0"
         self._send(link, protocol.snap_end_frame(link.snap_sent))
+        link.snap_tail = len(link.wbuf)
+        if not link.snap_tail:
+            self._snapshot_sent(link)
+
+    def _snapshot_sent(self, link: ShardLink) -> None:
+        """The ``snapshot`` boot phase of ``link`` ended: its snap-end
+        frame's last byte left for the worker."""
+        link.snap_tail = 0
+        ACCOUNT.boot_phase("snapshot", link.snap_t0, time.monotonic(),
+                           link.snap_cpu_ns / 1e9, shard=link.shard)
 
     def _on_invalidate(self, tags) -> None:
         """Owner-mirror invalidation -> delta frames.  Tags are lookup
@@ -539,6 +592,13 @@ class ShardSupervisor:
         reverse index from node data)."""
         if not self.links and not self._roll_links:
             return
+        ACCOUNT.begin(_ACT_FANOUT)
+        try:
+            self._fanout(tags)
+        finally:
+            ACCOUNT.end(lambda: trace_id(self.tracer))
+
+    def _fanout(self, tags) -> None:
         domain = self.cache.domain
         suffix = "." + domain
         # propagation trace context: stamped by the owner mirror's
@@ -556,6 +616,7 @@ class ShardSupervisor:
                           else protocol.gone_frame(tag, tr, t0))
         if not frames:
             return
+        self._m_fanout_events.inc()
         gen = self.cache.gen
         for link in self._fanout_links():
             for frame in frames:
@@ -574,7 +635,11 @@ class ShardSupervisor:
         which case the digest rolls WITHOUT the send (the replica must
         flag the divergence at the next digest frame)."""
         if link.dg is not None:
-            link.dg = protocol.delta_digest(link.dg, frame)
+            ACCOUNT.begin(_ACT_DIGEST)
+            try:
+                link.dg = protocol.delta_digest(link.dg, frame)
+            finally:
+                ACCOUNT.end()
             if link.skew_pending > 0:
                 link.skew_pending -= 1
                 self.log.warning(
@@ -628,7 +693,11 @@ class ShardSupervisor:
     def _send(self, link: ShardLink, frame: dict) -> None:
         if link.closed:
             return
-        link.wbuf.extend(protocol.encode_frame(frame))
+        ACCOUNT.begin(_ACT_ENCODE)
+        try:
+            link.wbuf.extend(protocol.encode_frame(frame))
+        finally:
+            ACCOUNT.end()
         if len(link.wbuf) > MAX_LINK_BUFFER:
             # a worker this far behind on its mutation log is wedged;
             # snapshot catch-up on respawn is the bounded recovery
@@ -642,15 +711,22 @@ class ShardSupervisor:
     def _flush(self, link: ShardLink) -> None:
         if link.closed or not link.wbuf:
             return
+        ACCOUNT.begin(_ACT_FLUSH)
         try:
             sent = link.sock.send(bytes(link.wbuf))
             del link.wbuf[:sent]
         except (BlockingIOError, InterruptedError):
-            pass
+            sent = 0
         except OSError:
             # worker died mid-write; the tick loop reaps and respawns
             self._close_link(link)
             return
+        finally:
+            ACCOUNT.end()
+        if link.snap_tail > 0:
+            link.snap_tail -= sent
+            if link.snap_tail <= 0:
+                self._snapshot_sent(link)
         if link.wbuf and not link.writer_armed:
             link.writer_armed = True
             self._loop.add_writer(link.sock.fileno(),
@@ -740,17 +816,13 @@ class ShardSupervisor:
             self._request_children[link.shard].inc(delta)
             self._requests_total[link.shard] = \
                 self._requests_total.get(link.shard, 0.0) + delta
-        for key, attr, children in (
-                ("rrl_dropped", "last_rrl_dropped",
-                 self._rrl_drop_children),
-                ("shed", "last_shed", self._shed_children)):
-            val = float(frame.get(key) or 0.0)
-            d = val - getattr(link, attr)
-            if d < 0:
-                d = val
-            setattr(link, attr, val)
-            if d > 0:
-                children[link.shard].inc(d)
+        val = float(frame.get("rrl_dropped") or 0.0)
+        d = val - link.last_rrl_dropped
+        if d < 0:
+            d = val
+        link.last_rrl_dropped = val
+        if d > 0:
+            self._rrl_drop_children[link.shard].inc(d)
 
     def _sever(self, link: ShardLink) -> None:
         """A dead mutation log means a dead shard: a worker that lost
@@ -787,10 +859,13 @@ class ShardSupervisor:
     async def _tick_loop(self) -> None:
         while not self._draining:
             await asyncio.sleep(0.5)
+            ACCOUNT.begin(_ACT_TICK)
             try:
                 self._tick()
             except Exception:
                 self.log.exception("shard supervisor tick failed")
+            finally:
+                ACCOUNT.end()
 
     def _tick(self) -> None:
         # session-state heartbeat (edge-triggered + periodic): workers'
@@ -1063,6 +1138,9 @@ class ShardSupervisor:
         """SIGTERM drain: stop respawning, TERM every worker, wait
         bounded, KILL stragglers, reap everything — no orphan PIDs."""
         self._draining = True
+        if self._walk_task is not None:
+            self._walk_task.cancel()
+            self._walk_task = None
         if self._tick_task is not None:
             self._tick_task.cancel()
             try:

@@ -45,6 +45,7 @@ import time
 from collections import deque
 from typing import Dict, List, Optional
 
+from binder_torch.introspect.loopacct import ACCOUNT
 from binder_torch.store import names as _names
 from binder_torch.store.interface import StoreClient
 
@@ -644,6 +645,7 @@ class MirrorCache:
             "last_duration_seconds": self.last_rebuild_duration_s,
         }
 
+    @ACCOUNT.spans("boot.walk")
     def _drain_rebuild(self, gen: int) -> None:
         q = self._rebuild_queue
         while q and gen == self._rebuild_gen:

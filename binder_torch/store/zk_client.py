@@ -48,11 +48,13 @@ import logging
 import struct
 from typing import Callable, Dict, List, Optional
 
+from binder_torch.introspect.loopacct import ACCOUNT
 from binder_torch.store import jute
 from binder_torch.store.interface import (SessionStateMixin, StoreClient,
                                         Watcher)
 from binder_torch.store.jute import Buf, Err, EventType, OpCode
 from binder_torch.utils.endpoints import parse_endpoint
+from binder_torch.verify.tracer import trace_id
 
 RECONNECT_DELAY = 1.0
 # Connect attempts must be bounded well under the session timeout: a
@@ -66,6 +68,23 @@ CONNECT_TIMEOUT = 3.0
 # further write, so each write costs O(backlog) and the walk turns
 # quadratic.  A window keeps the backlog, and each write, small.
 MAX_IN_FLIGHT = 512
+
+
+#: the loop-accounting activity (introspect/loopacct.py) of the mirror's
+#: updates from fetched znodes
+_ACT_MIRROR = ACCOUNT.activity("mirror")
+
+
+def _mirror_apply(node, handler, arg) -> None:
+    """One fetched znode state applied to the mirror, as one ``mirror``
+    span: the node's update, ``bump_gen`` and the synchronous
+    invalidation fan-out to the mirror's subscribers.  A stall's cause
+    is the propagation trace the update opened."""
+    ACCOUNT.begin(_ACT_MIRROR)
+    try:
+        handler(arg)
+    finally:
+        ACCOUNT.end(lambda: trace_id(getattr(node.cache, "tracer", None)))
 
 
 class _ZKWatcher(Watcher):
@@ -364,25 +383,31 @@ class ZKClient(SessionStateMixin, StoreClient):
                 raise ConnectionError(
                     "zk: no traffic within session timeout; "
                     "assuming dead peer")
-            buf = Buf(frame)
-            xid = buf.i32()
-            if xid == jute.XID_WATCHER_EVENT:
-                buf.i64()  # zxid
-                buf.i32()  # err
-                etype = buf.i32()
-                buf.i32()  # keeper state
-                path = buf.string()
-                self._on_watch_event(etype, path)
-                continue
-            if xid == jute.XID_PING:
-                buf.i64()
-                buf.i32()
-                continue
-            zxid = buf.i64()
-            err = buf.i32()
-            fut = self._pending.pop(xid, None)
-            if fut is not None and not fut.done():
-                fut.set_result((err, buf))
+            self._dispatch_frame(frame)
+
+    @ACCOUNT.spans("zk")
+    def _dispatch_frame(self, frame: bytes) -> None:
+        """One frame the read loop took: a watch event, a ping's
+        reply, or a request's reply handed to its waiter."""
+        buf = Buf(frame)
+        xid = buf.i32()
+        if xid == jute.XID_WATCHER_EVENT:
+            buf.i64()  # zxid
+            buf.i32()  # err
+            etype = buf.i32()
+            buf.i32()  # keeper state
+            path = buf.string()
+            self._on_watch_event(etype, path)
+            return
+        if xid == jute.XID_PING:
+            buf.i64()
+            buf.i32()
+            return
+        buf.i64()  # zxid
+        err = buf.i32()
+        fut = self._pending.pop(xid, None)
+        if fut is not None and not fut.done():
+            fut.set_result((err, buf))
 
     async def _ping_loop(self) -> None:
         interval = max(0.5, self._negotiated_timeout / 3000.0)
@@ -392,6 +417,7 @@ class ZKClient(SessionStateMixin, StoreClient):
 
     # -- request plumbing --
 
+    @ACCOUNT.spans("zk")
     def _send(self, xid: int, opcode: int, body: bytes) -> None:
         if self._writer is None:
             raise ConnectionError("zk: not connected")
@@ -547,14 +573,14 @@ class ZKClient(SessionStateMixin, StoreClient):
                 if kids is None:
                     await self._arm_exists_watch(path)
                     return
-                node.on_children_changed(kids)
+                _mirror_apply(node, node.on_children_changed, kids)
                 return
             res = await self.get_data2(path, watch=True)
             if res is None:
                 await self._arm_exists_watch(path)
                 return
             data, stat = res
-            node.on_data_changed(data)
+            _mirror_apply(node, node.on_data_changed, data)
             # Children watch for every node EXCEPT host-record leaves
             # (compact tuples — the ~30:1 bulk of a production zone).
             # Structural nodes (no record: the mirror root and interior
@@ -567,7 +593,7 @@ class ZKClient(SessionStateMixin, StoreClient):
             if stat["numChildren"] > 0 or type(node.rec) is not tuple:
                 kids = await self.get_children(path, watch=True)
                 if kids is not None:
-                    node.on_children_changed(kids)
+                    _mirror_apply(node, node.on_children_changed, kids)
         except (ConnectionError, asyncio.CancelledError):
             pass  # reconnect path will resync
 

@@ -54,6 +54,7 @@ from typing import Optional
 from binder_torch.dns.wire import Rcode, Type, ip_from_reverse_name
 from binder_torch.resolver.answer_cache import _COMPILED
 from binder_torch.verify.tracer import PropagationTracer
+from binder_torch.introspect.loopacct import ACCOUNT
 
 #: the invariant catalog — the ``{invariant=...}`` label values of the
 #: ``binder_verify_*_total`` families, all zero-seeded at startup and
@@ -218,6 +219,7 @@ class Verifier:
         self._drain_scheduled = True
         loop.call_soon(self._drain)
 
+    @ACCOUNT.spans("verify")
     def _drain(self, reschedule: bool = True) -> None:
         self._drain_scheduled = False
         t0 = time.perf_counter()
@@ -447,6 +449,7 @@ class Verifier:
         self._audit_work = work
         self.audit_passes += 1
 
+    @ACCOUNT.spans("verify")
     def audit_slice(self) -> None:
         """One time-budgeted audit slice: resumes the in-flight pass or
         snapshots a new one.  Synchronous — tests drive it directly."""

@@ -58,6 +58,13 @@ SLOWEST_KEEP = 64
 SLOWEST_SHOW = 8
 
 
+def trace_id(tracer) -> Optional[str]:
+    """The id of the mutation ``tracer`` (or None) has in flight: the
+    cause a stalled mutation callback is reported with."""
+    ctx = tracer.current if tracer is not None else None
+    return None if ctx is None else ctx[0]
+
+
 def _quantile(sorted_vals, q: float) -> float:
     if not sorted_vals:
         return 0.0
