@@ -18,6 +18,18 @@ rebuild's version of that story with two deliberate twists:
   MirrorCache's invalidation events afterwards.  Each worker's
   precompiler re-renders from that same delta feed, so shard answers
   stay byte-identical (modulo ID/rotation) to the single-process path.
+- **The group joins its port with the tree mirrored.**  At boot the
+  supervisor holds the first spawn while the owner mirror's first walk
+  is in flight, as a balancer backend joins its balancer only once
+  synced: every worker then attaches with the whole tree in one
+  snapshot, read before its serve stack exists, instead of replaying
+  the walk as per-name deltas, and the public port never answers from
+  a half-walked mirror.  The hold ends as soon as the store reports no
+  walk coming (its first connection attempt ended without a session,
+  or the session dropped mid-walk): the group then serves what the
+  mirror holds, SERVFAIL from an empty one.  What ended it is counted
+  in ``binder_shard_boot_attach_total{after}``, and how long it took
+  is the ``hold`` boot phase.
 
 The supervisor also owns the operational surface: it respawns crashed
 shards (exponential backoff, snapshot catch-up), drains on SIGTERM
@@ -84,8 +96,14 @@ ROLL_DRAIN_S = 10.0
 SUPERVISOR_SNAPSHOT_VERSION = 1
 
 #: how often the boot watch looks whether the owner mirror holds the
-#: tree (the end of the ``walk`` boot phase)
+#: tree (the end of the ``walk`` boot phase and of the spawn hold)
 WALK_POLL_S = 0.02
+
+#: what ends the group's boot hold (``binder_shard_boot_attach_total``'s
+#: ``after`` label): the owner mirror's first walk done, the store's
+#: first connection attempt ended without a session, or the session
+#: lost mid-walk
+BOOT_ATTACH = ("walk", "no-session", "session-lost")
 
 #: loop-accounting activities (introspect/loopacct.py) of this module
 _ACT_FANOUT = ACCOUNT.activity("fanout")
@@ -263,6 +281,16 @@ class ShardSupervisor:
             "owner-mirror store events fanned out to the workers as "
             "delta frames").labelled()
         self._m_fanout_events.inc(0)
+        boot_attach = c.counter(
+            "binder_shard_boot_attach_total",
+            "group boots by what ended the hold on the first worker "
+            "spawn (walk: the owner mirror holds the tree; no-session, "
+            "session-lost: the store reported no walk coming)")
+        self._m_boot_attach = {}
+        for after in BOOT_ATTACH:
+            self._m_boot_attach[after] = boot_attach.labelled(
+                {"after": after})
+            self._m_boot_attach[after].inc(0)
         rolls = c.counter("binder_shard_rolls_total",
                           "completed zero-downtime drain-and-replace "
                           "cycles per shard (rolling upgrade / config "
@@ -320,10 +348,19 @@ class ShardSupervisor:
     # -- lifecycle --
 
     async def start(self) -> None:
-        """Spawn shard 0 first (it resolves an ephemeral port draw for
-        the whole reuseport group), then the rest concurrently."""
+        """Hold the first spawn through the owner mirror's first walk
+        (:meth:`_hold`), then spawn shard 0 first (it resolves an
+        ephemeral port draw for the whole reuseport group), then the
+        rest concurrently."""
         self._loop = asyncio.get_running_loop()
         self._walk_task = self._loop.create_task(self._watch_walk())
+        held = ACCOUNT.phase_start()
+        after = await self._hold()
+        ACCOUNT.phase_end("hold", held)
+        self._m_boot_attach[after].inc()
+        self.log.info("boot hold ended (%s): owner mirror at %d name(s); "
+                      "spawning %d shard(s)", after, len(self.cache.nodes),
+                      self.n)
         self._tmpdir = tempfile.mkdtemp(prefix="binder-shards-")
         self._spawn(0, self.port)
         hello = await self._wait_hello(0)
@@ -349,6 +386,25 @@ class ShardSupervisor:
     def _on_session_start(self) -> None:
         if self._walk_started is None:
             self._walk_started = ACCOUNT.phase_start()
+
+    async def _hold(self) -> str:
+        """Wait while the owner mirror's first walk is in flight; return
+        what ended the wait (one of :data:`BOOT_ATTACH`).  Until a
+        worker exists no link takes a delta, so the walk fans nothing
+        out, and each worker's attach snapshot carries the whole tree.
+        No walk is coming once the store's first connection attempt
+        has ended without a session, or once the session it walked
+        under is gone: the group then boots at once, as it always did."""
+        while True:
+            state = self._state_tuple()[0]
+            if state == "connected":
+                if self._walk_task.done():
+                    return "walk"
+            elif state != "never-connected":
+                return "session-lost"
+            elif not self.store.connecting():
+                return "no-session"
+            await asyncio.sleep(WALK_POLL_S)
 
     async def _watch_walk(self) -> None:
         """The ``walk`` boot phase: from the store session's first

@@ -252,5 +252,11 @@ class StoreClient:
         default suits stores that deliver state synchronously."""
         return False
 
+    def connecting(self) -> bool:
+        """True while the first session is still being established: no
+        session yet, and the first connection attempt has not ended.
+        The default suits stores whose session starts synchronously."""
+        return False
+
     def close(self) -> None:
         raise NotImplementedError

@@ -166,6 +166,9 @@ class ZKClient(SessionStateMixin, StoreClient):
         self._shared_nodes = None
         self._connected = False
         self._closed = False
+        # whether a connection attempt has ended, with or without a
+        # session (``connecting()``)
+        self._attempt_ended = False
 
         self._session_id = 0
         self._passwd = b"\x00" * 16
@@ -239,6 +242,15 @@ class ZKClient(SessionStateMixin, StoreClient):
         # every task but the connected session's ping loop is a fetch
         return len(self._tasks) > (1 if self._connected else 0)
 
+    def connecting(self) -> bool:
+        """True while the first connection attempt is in flight (the
+        session loop runs, no attempt has ended, none reached a
+        session).  Bounded by CONNECT_TIMEOUT: a refused or unanswered
+        ensemble ends it, and the state stays ``never-connected``."""
+        return (self._loop_task is not None and not self._closed
+                and not self._attempt_ended
+                and self._session_state == "never-connected")
+
     def is_connected(self) -> bool:
         """True only while a live session is established.  The bool
         cannot distinguish "never connected" from "session lost" — use
@@ -272,6 +284,7 @@ class ZKClient(SessionStateMixin, StoreClient):
             except Exception as e:  # noqa: BLE001
                 self.log.warning("zk: session error: %s", e)
                 err = str(e)
+            self._attempt_ended = True
             self._connected = False
             if self._session_state == "connected":
                 # a live session just dropped: degraded until the

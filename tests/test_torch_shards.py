@@ -18,7 +18,14 @@
   (same query ID, so the whole wire is compared; the rotating service
   names compare as the header plus sorted record sets); a SIGKILLed
   worker comes back under a new PID and serves a write made after the
-  kill; SIGTERM to the supervisor exits 0 and leaves no worker.
+  kill; SIGTERM to the supervisor exits 0 and leaves no worker.  Every
+  worker, the first ones, the respawned one and the rolled
+  replacements alike, attaches with the owner's whole mirror in its
+  snapshot.
+- The group's boot: the supervisor spawns no worker until the owner
+  mirror's first walk is done, so every worker's attach snapshot
+  carries the whole tree and the walk fans out no delta; over a store
+  that never connects the group boots at once and answers SERVFAIL.
 """
 import asyncio
 import dataclasses
@@ -40,6 +47,7 @@ from binder_torch.shard import protocol as port_proto
 from binder_torch.shard import supervisor as port_sup
 from binder_torch.store import FakeStore as PortStore
 from binder_torch.store import MirrorCache as PortCache
+from binder_torch.store import zk_client
 from binder_torch.store.zk_client import ZKClient
 from binder_torch.dns import wire
 from binder_tpu.metrics.collector import MetricsCollector as RefMetrics
@@ -49,6 +57,7 @@ from binder_tpu.shard import supervisor as ref_sup
 from binder_tpu.store import FakeStore as RefStore
 from binder_tpu.store import MirrorCache as RefCache
 from tests.test_torch_fastio import LANE_MAIN
+from tests.test_torch_loopacct import by_label, samples
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DOMAIN = "foo.com"
@@ -382,6 +391,41 @@ async def zk_write(port, items):
     w.close()
 
 
+def metrics(mport):
+    with urllib.request.urlopen(f"http://127.0.0.1:{mport}/metrics",
+                                timeout=5) as r:
+        return r.read().decode()
+
+
+def owner_names(mport):
+    """The node count of the supervisor's owner mirror."""
+    return int(sum(samples(metrics(mport), "binder_mirror_names").values()))
+
+
+def snapshots(log_path):
+    """``{pid: nodes}`` of every worker's ``snapshot applied`` line."""
+    out = {}
+    with open(log_path, "rb") as f:
+        for line in f:
+            try:
+                entry = json.loads(line)
+            except ValueError:
+                continue
+            m = re.match(r"shard \d+: snapshot applied \((\d+) node",
+                         str(entry.get("msg", "")))
+            if m:
+                out[entry["pid"]] = int(m.group(1))
+    return out
+
+
+def wait_snapshot(log_path, pid, timeout=20.0):
+    deadline = time.monotonic() + timeout
+    while pid not in snapshots(log_path):
+        assert time.monotonic() < deadline, f"pid {pid} logged no snapshot"
+        time.sleep(0.05)
+    return snapshots(log_path)[pid]
+
+
 def wait_served(port, served, flows=12, timeout=20.0):
     """Poll until ``flows`` fresh sockets each get every name's address
     (fresh source ports spread the asks over the worker group)."""
@@ -431,10 +475,12 @@ def test_port_supervisor_spawns_port_workers(tmp_path):
         workers = status(mport)["shards"]["workers"]
         pids = [w["pid"] for w in workers]
         assert len(set(pids)) == 2 and sup.pid not in pids
+        names = owner_names(mport)
         for pid in pids:
             line = cmdline(pid)
             assert "-m binder_torch.main" in line and "--shard-worker" in line
             assert "binder_tpu" not in line
+            assert wait_snapshot(tmp_path / "group.log", pid) == names
 
         # every worker's mirror fills from the owner over the log
         served = {"w0.foo.com": "10.50.0.1", "w3.foo.com": "10.50.0.4",
@@ -462,9 +508,31 @@ def test_port_supervisor_spawns_port_workers(tmp_path):
         assert snap["respawns_total"] == 1 and w0["respawns"] == 1
         assert "-m binder_torch.main" in cmdline(w0["pid"])
         assert "binder_tpu" not in cmdline(w0["pid"])
+        # the respawn attaches by snapshot, the owner's whole mirror
+        assert wait_snapshot(tmp_path / "group.log", w0["pid"]) == names
         # a write after the kill reaches every worker
         asyncio.run(zk_write(zk_port, [("/com/foo/w0", host("10.50.9.9"))]))
         wait_served(port, {"w0.foo.com": "10.50.9.9"})
+
+        # a rolled group: each replacement attaches by snapshot too, and
+        # a write after the roll reaches every one of them
+        before = {w["pid"] for w in snap["workers"]}
+        sup.send_signal(signal.SIGHUP)
+        deadline = time.monotonic() + 60
+        while True:
+            snap = status(mport)["shards"]
+            if snap["rolls_total"] == 2 and snap["rolling_shard"] is None \
+                    and all(w["up"] for w in snap["workers"]):
+                break
+            assert time.monotonic() < deadline, snap
+            time.sleep(0.2)
+        assert snap["roll_aborts"] == 0
+        rolled = [w["pid"] for w in snap["workers"]]
+        assert not before & set(rolled)
+        for pid in rolled:
+            assert wait_snapshot(tmp_path / "group.log", pid) == names
+        asyncio.run(zk_write(zk_port, [("/com/foo/w3", host("10.50.8.8"))]))
+        wait_served(port, {"w3.foo.com": "10.50.8.8"})
 
         # SIGTERM drains the group: exit 0, no worker left
         live = [w["pid"] for w in snap["workers"]]
@@ -479,6 +547,118 @@ def test_port_supervisor_spawns_port_workers(tmp_path):
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
+
+
+BOOT_HOSTS = 3000
+
+
+def boot_tree(path):
+    """A zk_testserver tree of ``BOOT_HOSTS`` hosts in 12 racks."""
+    rows = [["/com", ""], ["/com/foo", ""], ["/com/foo/zs", ""]]
+    rows += [[f"/com/foo/zs/r{r}", ""] for r in range(12)]
+    rows += [[f"/com/foo/zs/r{i % 12}/h{i}", json.dumps(
+        host(f"10.{64 + i // 65536}.{i // 256 % 256}.{i % 256}"))]
+        for i in range(BOOT_HOSTS)]
+    with open(path, "w") as f:
+        json.dump(rows, f)
+
+
+def boot_group(tmp_path, store_port):
+    """``python -m binder_torch.main`` over 2 workers and the ZooKeeper
+    at ``store_port``; the supervisor, its log, UDP and metrics ports."""
+    config = str(tmp_path / "group.json")
+    with open(config, "w") as f:
+        json.dump({"dnsDomain": DOMAIN, "datacenterName": "dc0",
+                   "host": "127.0.0.1", "queryLog": False, "shards": 2,
+                   "store": {"backend": "zookeeper", "host": "127.0.0.1",
+                             "port": store_port, "sessionTimeout": 5000}},
+                  f)
+    log = tmp_path / "group.log"
+    sup, text = boot(["-m", "binder_torch.main", "-f", config, "-p", "0"],
+                     log, rb"TCP DNS service started on [\d.]+:\d+")
+    udp = int(re.search(rb"UDP DNS service started on [\d.]+:(\d+)",
+                        text).group(1))
+    mport = int(re.search(rb"metrics server started on port (\d+)",
+                          text).group(1))
+    return sup, log, udp, mport
+
+
+def stop(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def test_group_spawns_its_workers_after_the_owners_walk(tmp_path):
+    """No worker exists before the owner mirror's first walk ends; each
+    attaches with the whole tree in its snapshot, and the walk fanned
+    out no delta."""
+    tree = str(tmp_path / "tree.json")
+    boot_tree(tree)
+    procs = []
+    try:
+        zk, text = boot(["-m", "binder_torch.store.zk_testserver", "0",
+                         tree], tmp_path / "zk.log",
+                        rb"listening on [\d.]+:\d+")
+        procs.append(zk)
+        zk_port = int(re.search(rb"listening on [\d.]+:(\d+)",
+                                text).group(1))
+        sup, log, port, mport = boot_group(tmp_path, zk_port)
+        procs.append(sup)
+        workers = status(mport)["shards"]["workers"]
+        sup_text = metrics(mport)
+        names = owner_names(mport)
+        assert names >= BOOT_HOSTS
+        ends = by_label(sup_text, "binder_boot_phase_end_seconds", "phase")
+        assert ends["hold"] >= ends["walk"]
+        assert by_label(sup_text, "binder_shard_boot_attach_total",
+                        "after") == {"walk": 1, "no-session": 0,
+                                     "session-lost": 0}
+        assert sum(samples(sup_text, "binder_shard_fanout_events_total")
+                   .values()) == 0
+        for w in workers:
+            assert wait_snapshot(log, w["pid"]) == names
+            text = metrics(w["metrics_port"])
+            replay = by_label(text, "binder_boot_phase_seconds", "phase")
+            replay_end = by_label(text, "binder_boot_phase_end_seconds",
+                                  "phase")
+            # the replay phase starts at the spawn, on the same clock
+            assert replay_end["replay"] - replay["replay"] >= ends["hold"]
+        wait_served(port, {"h0.r0.zs.foo.com": "10.64.0.0",
+                           f"h{BOOT_HOSTS - 1}.r{(BOOT_HOSTS - 1) % 12}"
+                           ".zs.foo.com": "10.64.11.183"})
+    finally:
+        stop(procs)
+
+
+def test_group_without_a_store_session_boots_and_serves_servfail(tmp_path):
+    """A store that refuses every connection holds nothing up: the hold
+    ends with the first attempt, the group announces and answers
+    SERVFAIL."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        closed = s.getsockname()[1]
+    procs = []
+    try:
+        sup, _, port, mport = boot_group(tmp_path, closed)
+        procs.append(sup)
+        sup_text = metrics(mport)
+        assert by_label(sup_text, "binder_shard_boot_attach_total",
+                        "after") == {"walk": 0, "no-session": 1,
+                                     "session-lost": 0}
+        hold = by_label(sup_text, "binder_boot_phase_seconds", "phase")
+        assert hold["hold"] < zk_client.CONNECT_TIMEOUT
+        assert "walk" not in hold
+        for k in range(6):
+            reply = wire.Message.decode(ask(port, "w0.foo.com", T.A, 500 + k))
+            assert reply.rcode == wire.Rcode.SERVFAIL
+    finally:
+        stop(procs)
 
 
 class _SlowSocket:

@@ -21,12 +21,16 @@ zk_testserver}`` against ``binder_tpu.store``'s.
   drop resumes the same session and re-arms the watches; an expired
   session comes back as a new session with a rebuilt mirror; two
   members over one ``ZKEnsembleState`` fail over with the session kept.
+- The port's ``connecting()``, which the shard supervisor's boot hold
+  reads: true for exactly the first connection attempt, whether it
+  reaches a session or is refused.
 """
 import asyncio
 import json
 import os
 import random
 import re
+import socket
 import struct
 import subprocess
 import sys
@@ -468,6 +472,36 @@ def test_expired_session_starts_fresh_and_rebuilds(fast_reconnect):
     old, new, state, view = run_both(scenario)
     assert new != old and new != 0 and state == "connected"
     assert view["reverse"]["10.5.5.5"] == "web3.foo.com"
+
+
+def test_connecting_lasts_the_first_connection_attempt(fast_reconnect):
+    async def run():
+        server = port_srv.ZKTestServer()
+        await server.start()
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            closed = s.getsockname()[1]
+        live = port_zk.ZKClient(address="127.0.0.1", port=server.port,
+                                session_timeout_ms=2000)
+        dead = port_zk.ZKClient(address="127.0.0.1", port=closed,
+                                session_timeout_ms=2000)
+        assert live.connecting() and dead.connecting()
+        assert await wait_for(lambda: not live.connecting())
+        assert live.session_state() == "connected"
+        assert await wait_for(lambda: not dead.connecting())
+        assert dead.session_state() == "never-connected"
+        # a later retry that connects, or a lost session, is no first
+        # attempt: connecting() stays false
+        await asyncio.sleep(0.2)
+        assert not dead.connecting()
+        server.drop_connections()
+        assert await wait_for(lambda: not live.is_connected())
+        assert not live.connecting()
+        live.close()
+        dead.close()
+        await server.stop()
+
+    asyncio.run(run())
 
 
 def test_ensemble_failover_keeps_the_session(fast_reconnect):
