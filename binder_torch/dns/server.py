@@ -133,6 +133,13 @@ def unpack_balancer_frame(frame: bytes) -> Tuple[int, str, int, int, bytes]:
     return family, addr, port, transport, frame[BALANCER_HDR:]
 
 
+#: loop accounting (introspect/loopacct.py) of the balancer lane: one
+#: ``balancer`` span a link's readiness event, its children
+#: (``balancer.clane``, ``.python``, ``.send``) timed once a call or a
+#: batch
+_ACT_BAL_CLANE = ACCOUNT.activity("balancer.clane")
+
+
 class BalancerLink:
     """One balancer connection, backend side, on a raw socket (asyncio
     streams would discard the SCM_RIGHTS ancillary data that carries
@@ -198,6 +205,7 @@ class BalancerLink:
 
     # -- reads --
 
+    @ACCOUNT.spans("balancer")
     def _on_readable(self) -> None:
         try:
             data, fds, _flags, _addr = socket.recv_fds(
@@ -230,8 +238,12 @@ class BalancerLink:
                          or engine.fastpath_gate())):
                 gen = engine.fastpath_gen() if engine.fastpath_gen else 0
                 try:
-                    consumed, _served, misses = _fp_serve_balancer(
-                        fp, buf, gen, self.direct_sock.fileno())
+                    ACCOUNT.begin(_ACT_BAL_CLANE)
+                    try:
+                        consumed, _served, misses = _fp_serve_balancer(
+                            fp, buf, gen, self.direct_sock.fileno())
+                    finally:
+                        ACCOUNT.end()
                 except OSError as e:
                     # the passed socket went bad under us: drop direct
                     # mode, the relay lane still works, and the whole
@@ -243,11 +255,9 @@ class BalancerLink:
                     self._drop_direct()
                 else:
                     del buf[:consumed]
-                    for frame in misses:
-                        if not self._handle_frame(bytes(frame),
-                                                  from_native=True):
-                            self.close()
-                            return
+                    if misses and not self._handle_misses(misses):
+                        self.close()
+                        return
                     log_flush = engine.fastpath_log_flush
                     if log_flush is not None:
                         try:
@@ -259,27 +269,42 @@ class BalancerLink:
             # everything, when there is no cache / no passed fd / the
             # gate is closed; only a trailing partial or garbage frame
             # otherwise
-            while not self._closed:
-                if len(buf) < 4:
-                    break
-                length = int.from_bytes(buf[:4], "big")
-                if length < BALANCER_HDR or length > MAX_FRAME:
-                    self.log.error("balancer frame length %d out of "
-                                   "range", length)
-                    self.close()
-                    return
-                if len(buf) < 4 + length:
-                    break
-                frame = bytes(buf[4:4 + length])
-                del buf[:4 + length]
-                if not self._handle_frame(frame):
-                    self.close()
-                    return
+            if len(buf) >= 4 and not self._closed:
+                self._python_lane(buf)
         finally:
             self._direct_box[0] = None
             if out and not self._closed:
                 self._send_direct_batch(out)
             self._flush()
+
+    @ACCOUNT.spans("balancer.python")
+    def _handle_misses(self, misses) -> bool:
+        """The frames the native pass surfaced (cache misses), through
+        the Python lane; False on a protocol error that must drop the
+        link."""
+        return all(self._handle_frame(bytes(frame), from_native=True)
+                   for frame in misses)
+
+    @ACCOUNT.spans("balancer.python")
+    def _python_lane(self, buf: bytearray) -> None:
+        """Every complete frame of ``buf``, consumed; a protocol error
+        closes the link."""
+        while not self._closed:
+            if len(buf) < 4:
+                break
+            length = int.from_bytes(buf[:4], "big")
+            if length < BALANCER_HDR or length > MAX_FRAME:
+                self.log.error("balancer frame length %d out of "
+                               "range", length)
+                self.close()
+                return
+            if len(buf) < 4 + length:
+                break
+            frame = bytes(buf[4:4 + length])
+            del buf[:4 + length]
+            if not self._handle_frame(frame):
+                self.close()
+                return
 
     def _handle_frame(self, frame: bytes,
                       from_native: bool = False) -> bool:
@@ -392,6 +417,7 @@ class BalancerLink:
         if out and not self._closed:
             self._send_direct_batch(out)
 
+    @ACCOUNT.spans("balancer.send")
     def _send_direct_batch(self, out: list) -> None:
         sock = self.direct_sock
         if sock is None:
@@ -587,6 +613,9 @@ class DnsServer:
         # the same way, so ordinary store churn drops only the affected
         # balancer entries.
         self.gen_source: Optional[Callable[[], int]] = None
+        # called once, at the first balancer link accepted (main.py's
+        # ``join`` boot phase); None = nothing to tell
+        self.on_balancer_join: Optional[Callable[[], None]] = None
         # In-flight query table (introspection): queries whose handler
         # went async — the only ones observable "in flight" from outside
         # (sync completions never leave the dispatch call).  Keyed by
@@ -1366,6 +1395,9 @@ class DnsServer:
                 return
             sock.setblocking(False)
             BalancerLink(self, sock, loop).start()
+            join, self.on_balancer_join = self.on_balancer_join, None
+            if join is not None:
+                join()
 
     def notify_mutation(self) -> None:
         """Broadcast a fresh generation frame to every balancer link,

@@ -5,7 +5,9 @@ the UDP drain (the C lane, the Python lane, ``sendmmsg``, the query-log
 ring), the mutation feed from the supervisor and the refill work it
 schedules (precompile, zone refresh, verification), and the 1 Hz stats
 frame.  The supervisor's goes to its ZooKeeper read loop, the owner
-mirror, and the per-link fan-out.  The loop-lag watchdog says WHEN the
+mirror, and the per-link fan-out.  A server behind ``mbalancer`` splits
+its core between its balancer links (the same lanes) and its own
+session's reads and mirror.  The loop-lag watchdog says WHEN the
 loop was late; this says WHAT held it.
 
 Each instrumented loop entry point brackets its synchronous work with
@@ -22,8 +24,10 @@ interval's CPU is shared among the spans that ran in it by self wall
 time: an activity gets the interval's CPU in proportion to its spans'
 wall over the thread's busy wall (the interval less the loop's wait in
 its selector, the activity ``select``, which is counted by wall and by
-call), and the busy wall no span covers (asyncio's dispatch) leaves
-its share to ``other``.  So every activity of one interval runs at the
+call).  In the accounted loop the busy wall no span covers is the
+activity ``dispatch``: asyncio's own work between callbacks (its ready
+queue, timers and selector events) and the loop callbacks no span
+names (a transport's reads).  So every activity of one interval runs at the
 interval's one CPU-to-wall ratio; a single callback's own CPU is
 measured only for a ``long-callback``.  Once bound, the accountant
 names the cyclic garbage collector's older collections ``gc`` (a young
@@ -33,11 +37,13 @@ process's collector at scrape time, labelled by ``activity``:
 - ``binder_loop_cpu_seconds_total``: the activity's CPU seconds;
   ``activity="other"`` is the process's CPU (``time.process_time``)
   less every named activity, so the family sums to what ``/proc``
-  reads for the process: asyncio's dispatch between callbacks, loop
-  callbacks no span names, and the scrape threads;
+  reads for the process: the threads beside the loop's (the scrape
+  threads), and the loop's own dispatch where it is not the accounted
+  loop;
 - ``binder_loop_wall_seconds_total``: the activity's wall seconds
-  (``select``'s is the loop's wait; its CPU is shared out with the
-  rest of its interval's, so it reads no CPU of its own);
+  (``select``'s is the loop's wait; its CPU is what the interval spent
+  beyond its busy wall, the selector's system calls, and so reads low
+  where the interval's CPU falls short of its busy wall);
 - ``binder_loop_callbacks_total``: the spans it ran.
 
 A top-level span whose wall time reaches the watchdog's stall
@@ -60,9 +66,10 @@ flight event each.
 One accountant per process (:data:`ACCOUNT`), as there is one CPU
 clock per process to divide: every instrumented module imports it;
 ``main.py`` binds it to the process's collector and flight recorder in
-shard mode.  Unbound (a single-process server), a span is one
-attribute test and reads no clock, and nothing is counted or exported;
-boot phases are kept and exported once bound.
+every server process.  Unbound (the modules used as a library, as
+tests do), a span is one attribute test and reads no clock, and
+nothing is counted or exported; boot phases are kept and exported once
+bound.
 Spans are kept per thread; the activities' totals are written by the
 loop thread alone (the collector is watched on the thread that bound
 the accountant) and read by the scrape threads.
@@ -70,6 +77,7 @@ the accountant) and read by the scrape threads.
 from __future__ import annotations
 
 import asyncio
+import collections.abc
 import functools
 import gc
 import selectors
@@ -92,6 +100,8 @@ OTHER = "other"
 SELECT = "select"
 #: the cyclic garbage collector's generation 1 and 2 collections
 GC = "gc"
+#: the accounted loop's own work between the callbacks it runs
+DISPATCH = "dispatch"
 
 #: how often the loop thread's CPU clock is read, and its CPU shared out
 INTERVAL_S = 0.1
@@ -152,6 +162,7 @@ class LoopAccountant:
         self._gc = self.activity(GC)
         self._gc_thread: Optional[int] = None
         self._select = self.activity(SELECT)
+        self._dispatch = self.activity(DISPATCH)
         # concurrent scrapes fold one at a time
         self._fold_lock = threading.Lock()
 
@@ -222,14 +233,28 @@ class LoopAccountant:
         if not st.stack:
             self._settle(st, _wall_ns())
 
-    def _settle(self, st: _Thread, now: int) -> None:
+    def _settle(self, st: _Thread, now: int, loop: bool = False) -> None:
         cpu = _cpu_ns()
+        spent = cpu - st.cpu0
         busy = now - st.wall0 - st.select_wall
-        ratio = (cpu - st.cpu0) / busy if busy > 0 else 0.0
+        ratio = spent / busy if busy > 0 else 0.0
         ratio = min(1.0, max(0.0, ratio))
+        covered = 0
         for act in st.ran:
+            covered += act.pending_wall
             act.cpu_ns += int(act.pending_wall * ratio)
             act.pending_wall = 0
+        if loop and busy > covered:
+            # the accounted loop's busy wall no span covers: its own
+            # dispatch (ready queue, timers, transports' I/O callbacks)
+            act = self._dispatch
+            act.wall_ns += busy - covered
+            act.cpu_ns += int((busy - covered) * ratio)
+            act.calls += 1
+        if loop and spent > busy:
+            # CPU beyond the busy wall was spent in the selector's wait:
+            # its system calls (an epoll_wait is CPU under gVisor)
+            self._select.cpu_ns += spent - max(busy, 0)
         st.ran = set()
         st.ratio = ratio
         st.cpu0 = cpu
@@ -259,6 +284,12 @@ class LoopAccountant:
         activity ``name``."""
         return lambda fn: self.wrap(name, fn)
 
+    def steps(self, name: str, coro) -> "Steps":
+        """``coro`` for a task, each of its steps (a run from one await
+        to the next) one span of activity ``name``: the coroutine
+        machinery of a task that no callback span covers."""
+        return Steps(self, self.activity(name), coro)
+
     def _on_gc(self, phase: str, info: dict) -> None:
         if (info["generation"] == 0
                 or threading.get_ident() != self._gc_thread):
@@ -282,7 +313,7 @@ class LoopAccountant:
                 st = accountant._thread()
                 w0 = _wall_ns()
                 if w0 - st.wall0 >= accountant.interval_ns:
-                    accountant._settle(st, w0)
+                    accountant._settle(st, w0, loop=True)
                 try:
                     return super().select(timeout)
                 finally:
@@ -429,6 +460,42 @@ class LoopAccountant:
         """``{activity: (cpu_ns, wall_ns, calls)}`` (tests, status)."""
         return {name: (a.cpu_ns, a.wall_ns, a.calls)
                 for name, a in self._acts.items()}
+
+
+class Steps(collections.abc.Coroutine):
+    """A coroutine whose every step its task runs is one span
+    (:meth:`LoopAccountant.steps`); unbound, a plain step."""
+
+    __slots__ = ("_acct", "_act", "_coro")
+
+    def __init__(self, acct: LoopAccountant, act: Activity, coro) -> None:
+        self._acct, self._act, self._coro = acct, act, coro
+
+    def send(self, value):
+        acct = self._acct
+        if acct._collector is None:
+            return self._coro.send(value)
+        acct.begin(self._act)
+        try:
+            return self._coro.send(value)
+        finally:
+            acct.end()
+
+    def throw(self, *exc):
+        acct = self._acct
+        if acct._collector is None:
+            return self._coro.throw(*exc)
+        acct.begin(self._act)
+        try:
+            return self._coro.throw(*exc)
+        finally:
+            acct.end()
+
+    def close(self) -> None:
+        self._coro.close()
+
+    def __await__(self):
+        return self._coro.__await__()
 
 
 #: the process's accountant

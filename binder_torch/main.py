@@ -222,6 +222,8 @@ async def run(options: Dict[str, object]) -> BinderServer:
     options["shards"] = resolve_shard_count(options)
     if shard_worker is None and options["shards"] >= 1:
         return await run_supervisor(options)
+    # the start of this process's boot phases (its imports done)
+    started = ACCOUNT.phase_start()
 
     log = make_logger(NAME, str(options.get("logLevel", os.environ.get(
         "LOG_LEVEL", "info"))))
@@ -247,6 +249,9 @@ async def run(options: Dict[str, object]) -> BinderServer:
 
     recorder = FlightRecorder(
         capacity=int(options.get("flightRecorderSize", 512)), log=log)
+    # loop accounting and boot phases (docs/observability.md), from
+    # before the store session opens
+    ACCOUNT.bind(collector, recorder)
     if shard_worker is not None:
         # shard worker: NO store session of its own — the one session
         # lives in the supervisor; this process replays the mutation
@@ -254,7 +259,6 @@ async def run(options: Dict[str, object]) -> BinderServer:
         from binder_torch.shard import ReplicaStore
         from binder_torch.shard.protocol import (SHARD_FD_ENV,
                                                  SHARD_SPAWNED_ENV)
-        ACCOUNT.bind(collector, recorder)
         spawned = float(os.environ.get(SHARD_SPAWNED_ENV,
                                        time.monotonic()))
         fd = int(os.environ[SHARD_FD_ENV])
@@ -271,8 +275,13 @@ async def run(options: Dict[str, object]) -> BinderServer:
     else:
         store = make_store(options, log, collector=collector,
                            recorder=recorder)
+        # boot phase ``serving`` runs from the process's start
+        serving = started
     cache = MirrorCache(store, str(options["dnsDomain"]), log=log,
                         collector=collector, recorder=recorder)
+    if shard_worker is None:
+        # boot phase ``walk``: this process's own session's first walk
+        cache.watch_first_walk(asyncio.get_running_loop())
 
     # multi-DC federation (binder_torch/federation, docs/federation.md):
     # peer discovery from the watched /dcs subtree, cross-DC forwarding
@@ -388,11 +397,14 @@ async def run(options: Dict[str, object]) -> BinderServer:
     )
     # introspection handle (/status federation section, bstat line)
     server.federation = federation
+    if balancer_socket:
+        # boot phase ``join``: the process's start to the first balancer
+        # link it accepts, which it listens for once the mirror is whole
+        server.engine.on_balancer_join = lambda: ACCOUNT.phase_end(
+            "join", started)
     await server.start()
-    if shard_worker is not None:
-        # boot phase ``serving``: the serve stack built over the replica
-        # and its sockets bound
-        ACCOUNT.phase_end("serving", serving)
+    # boot phase ``serving``: the serve stack built and its sockets bound
+    ACCOUNT.phase_end("serving", serving)
 
     if len(cache.nodes) > 100_000:
         # large zones: the mirror is millions of long-lived objects; a
@@ -582,12 +594,10 @@ def main(argv=None) -> None:
         await run(options)
         await asyncio.Event().wait()  # serve forever
 
-    # shard mode accounts the loop's own wait in its selector too
+    # the loop accounts its own wait in its selector too
     # (docs/observability.md "Loop accounting")
-    sharded = (options.get("shardWorker") is not None
-               or resolve_shard_count(options) >= 1)
     try:
-        asyncio.run(_run(), loop_factory=ACCOUNT.loop if sharded else None)
+        asyncio.run(_run(), loop_factory=ACCOUNT.loop)
     except KeyboardInterrupt:
         pass
     except ConfigError as e:

@@ -95,8 +95,8 @@ ROLL_DRAIN_S = 10.0
 
 SUPERVISOR_SNAPSHOT_VERSION = 1
 
-#: how often the boot watch looks whether the owner mirror holds the
-#: tree (the end of the ``walk`` boot phase and of the spawn hold)
+#: how often the spawn hold looks whether the owner mirror's first walk
+#: has ended
 WALK_POLL_S = 0.02
 
 #: what ends the group's boot hold (``binder_shard_boot_attach_total``'s
@@ -199,9 +199,7 @@ class ShardSupervisor:
         self._hello_futs: Dict[int, asyncio.Future] = {}
         self._draining = False
         self._tick_task: Optional[asyncio.Task] = None
-        # the ``walk`` boot phase: its start (the store session's first
-        # establishment) and the task that sees its end
-        self._walk_started: Optional[tuple] = None
+        # the task that records the ``walk`` boot phase, done at its end
         self._walk_task: Optional[asyncio.Task] = None
         self._tmpdir: Optional[str] = None
         self._cfg_path: Optional[str] = None
@@ -231,8 +229,6 @@ class ShardSupervisor:
         # the owner mirror's per-name invalidation events ARE the
         # mutation log: every tag maps to a node upsert or removal
         cache.on_invalidate(self._on_invalidate)
-        getattr(store, "on_session", lambda cb: None)(
-            self._on_session_start)
         # federation membership rides the same log: the
         # owner watches /dcs exactly like DcRegistry does and fans
         # join/leave through as raw-path frames, so shard workers track
@@ -353,7 +349,7 @@ class ShardSupervisor:
         ephemeral port draw for the whole reuseport group), then the
         rest concurrently."""
         self._loop = asyncio.get_running_loop()
-        self._walk_task = self._loop.create_task(self._watch_walk())
+        self._walk_task = self.cache.watch_first_walk(self._loop)
         held = ACCOUNT.phase_start()
         after = await self._hold()
         ACCOUNT.phase_end("hold", held)
@@ -383,10 +379,6 @@ class ShardSupervisor:
         self.log.info("TCP DNS service started on %s:%d", self.host,
                       self.tcp_port)
 
-    def _on_session_start(self) -> None:
-        if self._walk_started is None:
-            self._walk_started = ACCOUNT.phase_start()
-
     async def _hold(self) -> str:
         """Wait while the owner mirror's first walk is in flight; return
         what ended the wait (one of :data:`BOOT_ATTACH`).  Until a
@@ -405,13 +397,6 @@ class ShardSupervisor:
             elif not self.store.connecting():
                 return "no-session"
             await asyncio.sleep(WALK_POLL_S)
-
-    async def _watch_walk(self) -> None:
-        """The ``walk`` boot phase: from the store session's first
-        establishment to the owner mirror holding the store's tree."""
-        while self._walk_started is None or not self.cache.synced():
-            await asyncio.sleep(WALK_POLL_S)
-        ACCOUNT.phase_end("walk", self._walk_started)
 
     async def _wait_hello(self, i: int, timeout: float = 30.0,
                           link: Optional[ShardLink] = None) -> dict:

@@ -346,6 +346,10 @@ class MirrorCache:
     REBUILD_BUDGET_S = 0.002
     REBUILD_MIN_CHUNK = 1
 
+    #: how often the first walk's watch looks whether the mirror holds
+    #: the store's tree (the end of the ``walk`` boot phase)
+    WALK_POLL_S = 0.02
+
     def __init__(self, store: StoreClient, domain: str,
                  log: Optional[logging.Logger] = None,
                  collector=None, recorder=None) -> None:
@@ -526,6 +530,28 @@ class MirrorCache:
         has no fetch outstanding."""
         return (self.is_ready() and not self.rebuild_pending()
                 and not self.store.syncing())
+
+    def watch_first_walk(self, loop) -> asyncio.Task:
+        """Record the ``walk`` boot phase (introspect/loopacct.py): from
+        the store session's first establishment to the mirror holding
+        the store's tree (:meth:`synced`).  Returns the task that
+        records it and then ends."""
+        started: list = []
+
+        def on_session() -> None:
+            if not started:
+                started.append(ACCOUNT.phase_start())
+
+        self.store.on_session(on_session)
+
+        async def watch() -> None:
+            while not started or not self.synced():
+                await asyncio.sleep(self.WALK_POLL_S)
+            ACCOUNT.phase_end("walk", started[0])
+
+        # kept here: the loop holds its tasks weakly
+        self._walk_task = loop.create_task(watch())
+        return self._walk_task
 
     def staleness_seconds(self) -> Optional[float]:
         """Age of the last applied change (mutation or full rebuild).

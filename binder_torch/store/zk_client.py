@@ -75,6 +75,13 @@ MAX_IN_FLIGHT = 512
 _ACT_MIRROR = ACCOUNT.activity("mirror")
 
 
+def _zk_task(coro) -> asyncio.Task:
+    """A task of the session (its read loop, pings and fetches), each of
+    its steps one ``zk`` span: the socket reads, the request window and
+    the replies' wake-ups besides the frames themselves."""
+    return asyncio.ensure_future(ACCOUNT.steps("zk", coro))
+
+
 def _mirror_apply(node, handler, arg) -> None:
     """One fetched znode state applied to the mirror, as one ``mirror``
     span: the node's update, ``bump_gen`` and the synchronous
@@ -185,7 +192,7 @@ class ZKClient(SessionStateMixin, StoreClient):
 
         try:
             asyncio.get_running_loop()
-            self._loop_task = asyncio.ensure_future(self._session_loop())
+            self._loop_task = _zk_task(self._session_loop())
         except RuntimeError:
             pass  # caller starts us with start()
 
@@ -193,7 +200,7 @@ class ZKClient(SessionStateMixin, StoreClient):
 
     def start(self) -> None:
         if self._loop_task is None:
-            self._loop_task = asyncio.ensure_future(self._session_loop())
+            self._loop_task = _zk_task(self._session_loop())
 
     def on_session(self, cb: Callable[[], None]) -> None:
         self._session_cbs.append(cb)
@@ -353,7 +360,7 @@ class ZKClient(SessionStateMixin, StoreClient):
             self.log.info("zk: session 0x%x established (timeout %dms)",
                           session_id, timeout)
 
-            ping_task = asyncio.ensure_future(self._ping_loop())
+            ping_task = _zk_task(self._ping_loop())
             self._tasks.append(ping_task)
             try:
                 # fire session callbacks -> cache rebinds -> watched reads
@@ -398,7 +405,6 @@ class ZKClient(SessionStateMixin, StoreClient):
                     "assuming dead peer")
             self._dispatch_frame(frame)
 
-    @ACCOUNT.spans("zk")
     def _dispatch_frame(self, frame: bytes) -> None:
         """One frame the read loop took: a watch event, a ping's
         reply, or a request's reply handed to its waiter."""
@@ -527,7 +533,7 @@ class ZKClient(SessionStateMixin, StoreClient):
     def _schedule_sync(self, path: str, event: str) -> None:
         if not self._connected:
             return  # the session callback will rebind + resync everything
-        task = asyncio.ensure_future(self._sync(path, event))
+        task = _zk_task(self._sync(path, event))
         self._tasks.append(task)
         task.add_done_callback(self._tasks.remove)
 
@@ -557,7 +563,7 @@ class ZKClient(SessionStateMixin, StoreClient):
     def _schedule_shared(self, path: str, want: str) -> None:
         if not self._connected or self._shared_nodes is None:
             return  # the session callback will rebind + resync everything
-        task = asyncio.ensure_future(self._sync_shared(path, want))
+        task = _zk_task(self._sync_shared(path, want))
         self._tasks.append(task)
         task.add_done_callback(self._tasks.remove)
 
@@ -652,6 +658,6 @@ class ZKClient(SessionStateMixin, StoreClient):
                       and self._watchers[path].has_listeners)
                      or self._shared_node(path) is not None)
             if wants:
-                task = asyncio.ensure_future(self._arm_exists_watch(path))
+                task = _zk_task(self._arm_exists_watch(path))
                 self._tasks.append(task)
                 task.add_done_callback(self._tasks.remove)

@@ -10,7 +10,10 @@ loopacct.py``).
   ``long-callback`` flight event naming its activity and the trace id
   of the mutation it applied; the event's CPU tells a callback that
   burned the loop from one that blocked it.
-- Unbound (a single-process server), the accountant reads no clock.
+- Each step of a task made by ``steps`` is one span; the accounted
+  loop's busy wall no span covers is the ``dispatch`` activity.
+- Unbound (the modules used as a library), the accountant reads no
+  clock.
 - A 2,000-name shard group (``python -m binder_torch.main`` with
   ``shards: 2`` over ``binder_torch.store.zk_testserver``) under churn
   exposes non-zero ``udp``, ``feed`` and ``precompile`` CPU in every
@@ -191,17 +194,76 @@ def test_the_select_activity_is_the_loops_wait(accountant):
     finally:
         loop.close()
     cpu, wall, calls = acct.totals()[loopacct.SELECT]
-    # the selector's CPU is shared out with its interval's: none its own
+    # no interval closed (under 100 ms): the selector's CPU, what an
+    # interval spent beyond its busy wall, is not read yet
     assert calls >= 1 and wall >= 0.045e9 and cpu == 0
     text = collector.expose()
     assert by_label(text, loopacct.METRIC_CALLBACKS, "activity")[
         loopacct.SELECT] == calls
 
 
+def test_a_tasks_steps_are_one_span_each(accountant):
+    acct, _ = accountant
+
+    async def session():
+        spin(0.01)
+        await asyncio.sleep(0)
+        spin(0.01)
+        try:
+            await asyncio.sleep(5)
+        except asyncio.CancelledError:
+            spin(0.01)
+            return "cancelled"
+
+    async def scenario():
+        task = asyncio.ensure_future(acct.steps("zk", session()))
+        await asyncio.sleep(0.01)
+        task.cancel()
+        return await task
+
+    loop = acct.loop()
+    try:
+        assert loop.run_until_complete(scenario()) == "cancelled"
+    finally:
+        loop.close()
+    acct.settle()
+    cpu, wall, calls = acct.totals()["zk"]
+    # the steps to each await, and the one the cancellation was thrown
+    # into; the awaits' waits are not counted
+    assert calls == 3 and 0.03e9 <= wall < 0.05e9
+    assert cpu >= 0.8 * 0.03e9
+
+
+def test_the_accounted_loop_names_its_dispatch(accountant):
+    acct, _ = accountant
+
+    async def scenario():
+        loop = asyncio.get_running_loop()
+        loop.call_soon(spin, 0.03)           # a callback no span names
+        loop.call_soon(acct.wrap("udp", spin), 0.01)
+        await asyncio.sleep(0.01)
+        # past an interval: the next select closes it
+        await asyncio.sleep(loopacct.INTERVAL_S)
+
+    loop = acct.loop()
+    try:
+        loop.run_until_complete(scenario())
+    finally:
+        loop.close()
+    totals = acct.totals()
+    cpu, wall, calls = totals[loopacct.DISPATCH]
+    assert calls >= 1 and wall >= 0.03e9 and cpu >= 0.8 * 0.03e9
+    assert totals["udp"][0] >= 0.8 * 0.01e9
+    # the interval's CPU beyond its busy wall: the selector's, well
+    # under its wait
+    cpu, wall, _ = totals[loopacct.SELECT]
+    assert 0 <= cpu < 0.5 * wall
+
+
 def test_an_unbound_accountant_reads_no_clock(monkeypatch):
-    """A single-process server never binds the accountant: its spans,
-    wrapped callbacks and selector then read no clock and count
-    nothing."""
+    """An accountant no server bound (the modules used as a library):
+    its spans, wrapped callbacks, task steps and selector then read no
+    clock and count nothing."""
     def no_clock():
         raise AssertionError("an unbound accountant read a clock")
 
@@ -219,7 +281,7 @@ def test_an_unbound_accountant_reads_no_clock(monkeypatch):
 
     loop = acct.loop()
     try:
-        assert loop.run_until_complete(scenario()) == 3
+        assert loop.run_until_complete(acct.steps("zk", scenario())) == 3
     finally:
         loop.close()
     assert all(calls == 0 for _, _, calls in acct.totals().values())

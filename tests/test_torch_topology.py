@@ -9,6 +9,12 @@ reference's scenario (answers through the balancer, ``metric_ports``,
 status, scale down, stop), to running only the port, to restoring a
 killed instance, to the reference script's options, and to stopping on
 a failed build.  The smoke's topology phase runs here at a small zone.
+A 2-backend topology over ``binder_torch.store.zk_testserver`` at 2,000
+names, under churn writes, exports in each backend the loop-accounting
+families (``zk`` and ``mirror`` among them, summing to the process's
+``/proc`` CPU) and the boot phases ``walk``, ``zone-fill``, ``serving``
+and ``join``, and counts each applied write in
+``binder_store_watch_events{kind="data"}``.
 """
 import asyncio
 import importlib
@@ -27,6 +33,12 @@ import pytest
 import chip_smoke
 from binder_torch import fastio_build, topology
 from binder_torch.dns import Message, Rcode, Type, make_query
+from binder_torch.introspect import loopacct
+from binder_torch.store import MirrorCache
+from tests.test_torch_loopacct import (CHURN, DOMAIN, HOSTS, by_label,
+                                       churn, http, proc_cpu, samples,
+                                       spawn, zone_tree)
+from tools.lint import validate_exposition
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFERENCE = os.path.join(ROOT, "bin", "binder-topology")
@@ -371,3 +383,81 @@ def test_topology_series_arithmetic():
     assert summary["victim_forwarded_while_down"] == 3
     assert summary["kill_s"] == 1.0
     assert summary["restored_s"] == pytest.approx(2.3)
+
+
+def watch_data_events(mport):
+    return by_label(http(mport, "/metrics").decode(),
+                    "binder_store_watch_events", "kind").get("data", 0.0)
+
+
+def test_backends_account_their_loop_and_boot(tmp_path):
+    tree = str(tmp_path / "tree.json")
+    zone_tree(tree)
+    zk, m = spawn(["-m", "binder_torch.store.zk_testserver", "0", tree],
+                  tmp_path / "zk.log", rb"listening on [\d.]+:(\d+)")
+    zk_port = int(m.group(1))
+    config = tmp_path / "config.json"
+    config.write_text(json.dumps({
+        "dnsDomain": DOMAIN, "datacenterName": "dc0", "host": "127.0.0.1",
+        "store": {"backend": "zookeeper", "host": "127.0.0.1",
+                  "port": zk_port, "sessionTimeout": 5000}}))
+    rundir = str(tmp_path / "run")
+    base = chip_smoke.free_base(2)
+    try:
+        port = start(rundir, str(config), 2, base)
+        mports = [base + 1000, base + 1001]
+        pids = [instance_pids(rundir)[f"binder-{base + k}"]
+                for k in range(2)]
+        # each backend joins the balancer once its own walk is whole
+        deadline = time.monotonic() + 40
+        while True:
+            try:
+                joined = [
+                    "join" in by_label(http(p, "/metrics").decode(),
+                                       loopacct.METRIC_PHASE, "phase")
+                    for p in mports]
+            except OSError:
+                joined = []
+            if joined and all(joined):
+                break
+            assert time.monotonic() < deadline, "a backend never joined"
+            time.sleep(0.2)
+        names = [f"c{k}.{DOMAIN}" for k in range(CHURN)]
+        # 16 client addresses: the balancer pins each to one backend
+        for k, name in enumerate(names * 2):
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as c:
+                c.bind((f"127.0.1.{k + 1}", 0))
+                c.settimeout(5)
+                c.sendto(make_query(name, Type.A, qid=k).encode(),
+                         ("127.0.0.1", port))
+                assert Message.decode(c.recv(4096)).rcode == Rcode.NOERROR
+        before = [watch_data_events(p) for p in mports]
+        asyncio.run(churn(zk_port, 40))
+        time.sleep(1.5)
+        links = {}
+        for mport, pid, b in zip(mports, pids, before):
+            text = http(mport, "/metrics").decode()
+            cpu_proc = proc_cpu(pid)
+            assert validate_exposition(text) == []
+            cpu = by_label(text, loopacct.METRIC_CPU, "activity")
+            assert cpu.get("zk", 0) > 0 and cpu.get("mirror", 0) > 0, cpu
+            assert sum(cpu.values()) == pytest.approx(
+                cpu_proc, rel=0.05, abs=0.05), cpu
+            links[mport] = by_label(text, loopacct.METRIC_CALLBACKS,
+                                   "activity").get("balancer", 0)
+            ends = {dict(k)["phase"]: t for k, t in
+                    samples(text, loopacct.METRIC_PHASE_END).items()}
+            assert set(ends) >= {"walk", "zone-fill", "serving", "join"}
+            # both watch the mirror's sync, the walk more often: the
+            # balancer listener opens, and is joined, after the walk
+            assert ends["walk"] <= ends["join"] + MirrorCache.WALK_POLL_S
+            # one event a changed record: every churned name changed,
+            # and the 40 writes are all the changes (a one-shot watch
+            # may fold writes made between a notification and its fetch)
+            assert CHURN <= watch_data_events(mport) - b <= 40
+        # the queries reached the backends over their balancer links
+        assert sum(links.values()) > 0, links
+    finally:
+        run_topology("stop", "-D", rundir, timeout=60)
+        zk.terminate()
+        zk.wait(timeout=20)
