@@ -4,8 +4,8 @@ A shard worker's one event-loop core goes to several things at once:
 the UDP drain (the C lane, the Python lane, ``sendmmsg``, the query-log
 ring), the mutation feed from the supervisor and the refill work it
 schedules (precompile, zone refresh, verification), and the 1 Hz stats
-frame.  The supervisor's goes to its ZooKeeper read loop, the owner
-mirror, and the per-link fan-out.  A server behind ``mbalancer`` splits
+frame.  The supervisor's goes to its ZooKeeper session's wire, the
+owner mirror, and the per-link fan-out.  A server behind ``mbalancer`` splits
 its core between its balancer links (the same lanes) and its own
 session's reads and mirror.  The loop-lag watchdog says WHEN the
 loop was late; this says WHAT held it.

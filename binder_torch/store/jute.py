@@ -121,6 +121,8 @@ def frame(payload: bytes) -> bytes:
 # pzxid (i64)
 STAT_FMT = ">qqqqiiiqiiq"
 STAT_LEN = struct.calcsize(STAT_FMT)
+_NUM_CHILDREN = struct.Struct(">i")
+_NUM_CHILDREN_OFF = struct.calcsize(STAT_FMT[:10])
 
 
 def pack_stat(czxid=0, mzxid=0, ctime=0, mtime=0, version=0, cversion=0,
@@ -129,6 +131,12 @@ def pack_stat(czxid=0, mzxid=0, ctime=0, mtime=0, version=0, cversion=0,
     return struct.pack(STAT_FMT, czxid, mzxid, ctime, mtime, version,
                        cversion, aversion, ephemeral_owner, data_length,
                        num_children, pzxid)
+
+
+def stat_num_children(buf: Buf) -> int:
+    """The ``numChildren`` of the Stat at ``buf``'s offset, read in
+    place: the reader does not move."""
+    return _NUM_CHILDREN.unpack_from(buf.data, buf.off + _NUM_CHILDREN_OFF)[0]
 
 
 def read_stat(buf: Buf) -> dict:

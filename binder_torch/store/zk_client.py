@@ -18,11 +18,29 @@ Semantics:
   the read+watch pass is always safe (watch delivery is state-based here,
   events carry no payload).
 - **Watches**: one-shot on the wire.  Attaching a listener to a Watcher
-  triggers an async fetch (getChildren2/getData with watch=1, or an
+  triggers a fetch (getChildren2/getData with watch=1, or an
   exists-watch for nodes that don't exist yet); each WatcherEvent
   re-issues the fetch, re-arming the watch and emitting fresh state to
   the cache (state, not deltas — same contract as FakeStore).
 - **Ping**: every timeout/3 to keep the session alive.
+- **Request pipeline**: a request is a frame and a reply callback, no
+  task.  ``_pending`` maps each xid in flight to its callback; at most
+  ``MAX_IN_FLIGHT`` are in flight, the rest wait in a FIFO and each
+  reply moves one of them onto the wire, so requests go out in the
+  order they were made.  A fetch is a chain of such callbacks (getData,
+  then a getChildren2 where the Stat asks for one, or the exists-watch
+  on NONODE) counted by ``syncing()`` until its last reply is handled.
+  The frames queued during one loop turn leave in one socket write at
+  the next turn (a walk's write carries up to a window of them, a lone
+  change's one); each chunk the socket delivers is split into its
+  frames, dispatched in wire order, so a watch event keeps its place
+  between the replies around it.  ``binder_zk_wire_batches`` and
+  ``binder_zk_wire_frames`` count both directions
+  (docs/torch-observability.md).  On session loss
+  every callback in flight or queued is answered with
+  ``CONNECTION_LOSS``; the reconnect's rebuild fetches everything again.
+  The coroutines (``get_data``, ``create``, …) are thin wrappers over
+  the same pipeline for tools and tests.
 - **Shared watches**: when the mirror offers its
   domain→node index via ``bind_source``, the client stops allocating a
   per-path ``_ZKWatcher`` (~190 B/znode) and stops registering two wire
@@ -44,8 +62,10 @@ Semantics:
 from __future__ import annotations
 
 import asyncio
+import collections
 import logging
 import struct
+from functools import partial
 from typing import Callable, Dict, List, Optional
 
 from binder_torch.introspect.loopacct import ACCOUNT
@@ -68,17 +88,26 @@ CONNECT_TIMEOUT = 3.0
 # further write, so each write costs O(backlog) and the walk turns
 # quadratic.  A window keeps the backlog, and each write, small.
 MAX_IN_FLIGHT = 512
+#: the error a reply callback gets for a request the session lost
+#: (ZooKeeper's own client-side code for it)
+CONNECTION_LOSS = -4
+MAX_FRAME = 4 * 1024 * 1024
 
+_LEN = struct.Struct(">i")
+_REQ_HDR = struct.Struct(">iii")       # length, xid, opcode
+_REPLY_HDR = struct.Struct(">iqi")     # xid, zxid, err
+_EVENT_TYPE = struct.Struct(">i")      # after the reply header
+_EVENT_PATH_OFF = _REPLY_HDR.size + 8  # type and keeper state skipped
 
-#: the loop-accounting activity (introspect/loopacct.py) of the mirror's
-#: updates from fetched znodes
+#: the loop-accounting activities (introspect/loopacct.py) of the
+#: session's wire (a flush, a read chunk's dispatch, the session task's
+#: steps) and of the mirror's updates from fetched znodes
+_ACT_ZK = ACCOUNT.activity("zk")
 _ACT_MIRROR = ACCOUNT.activity("mirror")
 
 
 def _zk_task(coro) -> asyncio.Task:
-    """A task of the session (its read loop, pings and fetches), each of
-    its steps one ``zk`` span: the socket reads, the request window and
-    the replies' wake-ups besides the frames themselves."""
+    """A task of the session, each of its steps one ``zk`` span."""
     return asyncio.ensure_future(ACCOUNT.steps("zk", coro))
 
 
@@ -92,6 +121,95 @@ def _mirror_apply(node, handler, arg) -> None:
         handler(arg)
     finally:
         ACCOUNT.end(lambda: trace_id(getattr(node.cache, "tracer", None)))
+
+
+def _settle(fut: asyncio.Future, err: int, buf) -> None:
+    if not fut.done():
+        fut.set_result((err, buf))
+
+
+def _read_children(buf: Buf) -> List[str]:
+    n = buf.i32()
+    return sorted(buf.string() for _ in range(max(0, n)))
+
+
+class _Wire(asyncio.Protocol):
+    """One connection's socket: the handshake's reply, then every chunk
+    read split into its complete frames and handed to the client in
+    wire order, as one ``zk`` span a chunk."""
+
+    def __init__(self, client: "ZKClient",
+                 loop: asyncio.AbstractEventLoop) -> None:
+        self.client = client
+        self.transport: Optional[asyncio.Transport] = None
+        self.handshake = loop.create_future()
+        self.lost = loop.create_future()
+        # why the connection ended, for the session loop's log
+        self.error: Optional[ConnectionError] = None
+        self.now = loop.time
+        self.last_rx = loop.time()
+        # a frame cut by the chunk's end, and the bytes it needs
+        self._rest = bytearray()
+        self._need = 0
+        # frames read after the handshake's reply but before the session
+        # took the connection over (a resumed session's watch events)
+        self.early: List[bytes] = []
+
+    def connection_made(self, transport) -> None:
+        self.transport = transport
+
+    def fail(self, error: ConnectionError) -> None:
+        if self.error is None:
+            self.error = error
+        self.transport.abort()
+
+    def data_received(self, data: bytes) -> None:
+        ACCOUNT.begin(_ACT_ZK)
+        try:
+            self._chunk(data)
+        finally:
+            ACCOUNT.end()
+
+    def _chunk(self, data: bytes) -> None:
+        if self._rest:
+            self._rest += data
+            if len(self._rest) < self._need:
+                return
+            data = bytes(self._rest)
+            self._rest = bytearray()
+        frames = []
+        off, end = 0, len(data)
+        while end - off >= 4:
+            (n,) = _LEN.unpack_from(data, off)
+            if n < 0 or n > MAX_FRAME:
+                self.fail(ConnectionError(f"zk: bad frame length {n}"))
+                return
+            if end - off - 4 < n:
+                break
+            frames.append(data[off + 4:off + 4 + n])
+            off += 4 + n
+        if off < end:
+            self._rest = bytearray(data[off:])
+            self._need = (4 + _LEN.unpack_from(data, off)[0]
+                          if end - off >= 4 else 4)
+        if not frames:
+            return
+        self.last_rx = self.now()
+        if not self.handshake.done():
+            self.handshake.set_result(frames.pop(0))
+        if self.client._wire is self:
+            self.client._on_frames(self, frames)
+        else:
+            self.early.extend(frames)
+
+    def connection_lost(self, exc) -> None:
+        if exc is not None and self.error is None:
+            self.error = ConnectionError(f"zk: connection lost: {exc}")
+        if not self.handshake.done():
+            self.handshake.set_exception(
+                self.error or ConnectionError("zk: closed in handshake"))
+        if not self.lost.done():
+            self.lost.set_result(None)
 
 
 class _ZKWatcher(Watcher):
@@ -146,6 +264,7 @@ class ZKClient(SessionStateMixin, StoreClient):
         # client observability (zkstream publishes the analogous metrics
         # through the shared artedi collector, reference lib/zk.js:26-38)
         self.m_sessions = self.m_requests = self.m_notifications = None
+        self.m_batches = self.m_frames = {}
         if collector is not None:
             self.m_sessions = collector.counter(
                 "binder_zk_sessions_established",
@@ -155,6 +274,17 @@ class ZKClient(SessionStateMixin, StoreClient):
             self.m_notifications = collector.counter(
                 "binder_zk_watch_notifications",
                 "ZooKeeper watch notifications received").labelled()
+            batches = collector.counter(
+                "binder_zk_wire_batches",
+                "ZooKeeper socket writes (dir=send) and read chunks "
+                "(dir=recv)")
+            frames = collector.counter(
+                "binder_zk_wire_frames",
+                "ZooKeeper frames in those writes and chunks")
+            self.m_batches = {d: batches.labelled({"dir": d})
+                              for d in ("send", "recv")}
+            self.m_frames = {d: frames.labelled({"dir": d})
+                             for d in ("send", "recv")}
             collector.gauge(
                 "binder_zk_connected",
                 "1 while the ZooKeeper session is live"
@@ -181,11 +311,22 @@ class ZKClient(SessionStateMixin, StoreClient):
         self._passwd = b"\x00" * 16
         self._negotiated_timeout = session_timeout_ms
 
-        self._writer: Optional[asyncio.StreamWriter] = None
+        # the live session's connection (None between sessions)
+        self._wire: Optional[_Wire] = None
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._xid = 0
-        self._window = asyncio.Semaphore(MAX_IN_FLIGHT)
-        self._pending: Dict[int, asyncio.Future] = {}
-        self._tasks: List[asyncio.Task] = []
+        # xid -> reply callback(err, buf) of each request in flight
+        self._pending: Dict[int, Callable] = {}
+        # (opcode, body, callback) of requests waiting for the window
+        self._queued: collections.deque = collections.deque()
+        # frames queued this loop turn, and the flush that writes them
+        self._out: List[bytes] = []
+        self._flush_handle: Optional[asyncio.Handle] = None
+        self._ping_timer: Optional[asyncio.TimerHandle] = None
+        self._deadline_timer: Optional[asyncio.TimerHandle] = None
+        self._read_timeout = 1.0
+        # fetch chains queued, in flight or re-arming (``syncing()``)
+        self._fetches = 0
         self._loop_task: Optional[asyncio.Task] = None
         # paths we watch via exists() because they don't exist yet
         self._exists_watch: set = set()
@@ -244,10 +385,9 @@ class ZKClient(SessionStateMixin, StoreClient):
         # the path dispatches to nothing and is dropped
 
     def syncing(self) -> bool:
-        """True while a watched path's fetch is outstanding (the
-        mirror's walk, or a change being fetched)."""
-        # every task but the connected session's ping loop is a fetch
-        return len(self._tasks) > (1 if self._connected else 0)
+        """True while a watched path's fetch is queued, in flight or
+        re-arming (the mirror's walk, or a change being fetched)."""
+        return self._fetches > 0
 
     def connecting(self) -> bool:
         """True while the first connection attempt is in flight (the
@@ -270,14 +410,10 @@ class ZKClient(SessionStateMixin, StoreClient):
         self._session_transition("closed", "close() called")
         self._closed = True
         self._connected = False
-        if self._writer is not None:
-            try:
-                self._writer.close()
-            except Exception:  # noqa: BLE001
-                pass
-        for t in self._tasks + ([self._loop_task] if self._loop_task
-                                else []):
-            t.cancel()
+        if self._wire is not None:
+            self._wire.transport.close()
+        if self._loop_task is not None:
+            self._loop_task.cancel()
 
     # -- session loop --
 
@@ -313,8 +449,9 @@ class ZKClient(SessionStateMixin, StoreClient):
         handshake must fail fast so server rotation can advance, instead
         of stalling the session loop on the response read forever.
         """
-        reader, writer = await asyncio.open_connection(host, port)
-        self._writer = writer
+        loop = asyncio.get_running_loop()
+        transport, wire = await loop.create_connection(
+            lambda: _Wire(self, loop), host, port)
         try:
             # ConnectRequest: protoVer, lastZxidSeen, timeout, sessionId,
             # passwd (+ readOnly flag, 3.4+)
@@ -322,18 +459,16 @@ class ZKClient(SessionStateMixin, StoreClient):
                    + jute.i32(self.session_timeout_ms)
                    + jute.i64(self._session_id)
                    + jute.buffer(self._passwd) + jute.boolean(False))
-            writer.write(jute.frame(req))
-            await writer.drain()
-            resp = await self._read_frame(reader)
+            transport.write(jute.frame(req))
+            resp = await wire.handshake
         except BaseException:
-            self._writer = None
-            writer.close()
+            transport.close()
             raise
-        return reader, writer, resp
+        return wire, resp
 
     async def _run_session(self) -> None:
         host, port = self._servers[self._server_idx]
-        reader, writer, raw_resp = await asyncio.wait_for(
+        wire, raw_resp = await asyncio.wait_for(
             self._handshake(host, port), CONNECT_TIMEOUT)
         try:
             resp = Buf(raw_resp)
@@ -352,6 +487,8 @@ class ZKClient(SessionStateMixin, StoreClient):
             self._session_id = session_id
             self._passwd = passwd
             self._negotiated_timeout = timeout
+            loop = self._loop = asyncio.get_running_loop()
+            self._wire = wire
             self._connected = True
             self._session_transition(
                 "connected", f"session 0x{session_id:x} via {host}:{port}")
@@ -360,101 +497,160 @@ class ZKClient(SessionStateMixin, StoreClient):
             self.log.info("zk: session 0x%x established (timeout %dms)",
                           session_id, timeout)
 
-            ping_task = _zk_task(self._ping_loop())
-            self._tasks.append(ping_task)
+            # Dead-peer detection: our pings elicit replies every
+            # timeout/3, so a full session timeout with no frame at all
+            # means the server is gone even if TCP hasn't noticed (no
+            # FIN/RST on partition).
+            self._read_timeout = max(1.0, timeout / 1000.0)
+            self._deadline_timer = loop.call_at(
+                wire.last_rx + self._read_timeout, self._check_deadline)
+            interval = max(0.5, timeout / 3000.0)
+            self._ping_timer = loop.call_later(interval, self._ping,
+                                               interval)
             try:
                 # fire session callbacks -> cache rebinds -> watched reads
                 for cb in list(self._session_cbs):
                     cb()
-                await self._read_loop(reader)
+                if wire.early:
+                    early, wire.early = wire.early, []
+                    self._on_frames(wire, early)
+                await wire.lost
+                raise wire.error or ConnectionError(
+                    "zk: connection closed by server")
             finally:
-                ping_task.cancel()
-                self._tasks.remove(ping_task)
-                for fut in self._pending.values():
-                    if not fut.done():
-                        fut.set_exception(ConnectionError("zk: disconnected"))
-                self._pending.clear()
+                self._end_session()
         finally:
             self._connected = False
-            writer.close()
-            try:
-                await writer.wait_closed()
-            except Exception:  # noqa: BLE001
-                pass
-            self._writer = None
+            wire.transport.close()
 
-    async def _read_frame(self, reader: asyncio.StreamReader) -> bytes:
-        hdr = await reader.readexactly(4)
-        (length,) = struct.unpack(">i", hdr)
-        if length < 0 or length > 4 * 1024 * 1024:
-            raise ConnectionError(f"zk: bad frame length {length}")
-        return await reader.readexactly(length)
+    def _end_session(self) -> None:
+        """The session's connection is gone: stop its timers and answer
+        every request in flight or queued with ``CONNECTION_LOSS``."""
+        self._wire = None
+        self._connected = False
+        for handle in (self._flush_handle, self._ping_timer,
+                       self._deadline_timer):
+            if handle is not None:
+                handle.cancel()
+        self._flush_handle = self._ping_timer = self._deadline_timer = None
+        self._out = []
+        lost = list(self._pending.values())
+        lost.extend(cb for _, _, cb in self._queued)
+        self._pending.clear()
+        self._queued.clear()
+        for cb in lost:
+            self._answer(cb, CONNECTION_LOSS, None)
 
-    async def _read_loop(self, reader: asyncio.StreamReader) -> None:
-        # Dead-peer detection: our pings elicit replies every timeout/3,
-        # so a full session timeout with no frame at all means the server
-        # is gone even if TCP hasn't noticed (no FIN/RST on partition).
-        read_timeout = max(1.0, self._negotiated_timeout / 1000.0)
-        while True:
-            try:
-                frame = await asyncio.wait_for(self._read_frame(reader),
-                                               timeout=read_timeout)
-            except asyncio.TimeoutError:
-                raise ConnectionError(
-                    "zk: no traffic within session timeout; "
-                    "assuming dead peer")
-            self._dispatch_frame(frame)
-
-    def _dispatch_frame(self, frame: bytes) -> None:
-        """One frame the read loop took: a watch event, a ping's
-        reply, or a request's reply handed to its waiter."""
-        buf = Buf(frame)
-        xid = buf.i32()
-        if xid == jute.XID_WATCHER_EVENT:
-            buf.i64()  # zxid
-            buf.i32()  # err
-            etype = buf.i32()
-            buf.i32()  # keeper state
-            path = buf.string()
-            self._on_watch_event(etype, path)
+    def _check_deadline(self) -> None:
+        wire = self._wire
+        if wire is None:
             return
-        if xid == jute.XID_PING:
-            buf.i64()
-            buf.i32()
+        due = wire.last_rx + self._read_timeout
+        if self._loop.time() >= due:
+            wire.fail(ConnectionError(
+                "zk: no traffic within session timeout; "
+                "assuming dead peer"))
             return
-        buf.i64()  # zxid
-        err = buf.i32()
-        fut = self._pending.pop(xid, None)
-        if fut is not None and not fut.done():
-            fut.set_result((err, buf))
+        self._deadline_timer = self._loop.call_at(due, self._check_deadline)
 
-    async def _ping_loop(self) -> None:
-        interval = max(0.5, self._negotiated_timeout / 3000.0)
-        while True:
-            await asyncio.sleep(interval)
-            self._send(jute.XID_PING, OpCode.PING, b"")
+    def _ping(self, interval: float) -> None:
+        if self._wire is None:
+            return
+        self._send(jute.XID_PING, OpCode.PING, b"")
+        self._ping_timer = self._loop.call_later(interval, self._ping,
+                                                 interval)
+
+    def _on_frames(self, wire: _Wire, frames: List[bytes]) -> None:
+        """One read chunk's frames, in wire order: watch events, ping
+        replies, and requests' replies handed to their callbacks."""
+        if self.m_batches:
+            self.m_batches["recv"].inc()
+            self.m_frames["recv"].inc(len(frames))
+        pending, queued = self._pending, self._queued
+        for frame in frames:
+            try:
+                xid, _, err = _REPLY_HDR.unpack_from(frame)
+                if xid == jute.XID_WATCHER_EVENT:
+                    (etype,) = _EVENT_TYPE.unpack_from(frame,
+                                                       _REPLY_HDR.size)
+                    buf = Buf(frame)
+                    buf.off = _EVENT_PATH_OFF
+                    path = buf.string()
+                    self._on_watch_event(etype, path)
+                    continue
+            except (struct.error, ValueError) as e:
+                wire.fail(ConnectionError(f"zk: bad frame: {e}"))
+                return
+            if xid == jute.XID_PING:
+                continue
+            cb = pending.pop(xid, None)
+            if cb is None:
+                continue
+            if queued:
+                # the window slot this reply freed goes to the oldest
+                # waiting request
+                opcode, body, qcb = queued.popleft()
+                self._issue(opcode, body, qcb)
+            buf = Buf(frame)
+            buf.off = _REPLY_HDR.size
+            self._answer(cb, err, buf)
+
+    def _answer(self, cb: Callable, err: int, buf) -> None:
+        try:
+            cb(err, buf)
+        except Exception:  # noqa: BLE001 — one bad reply must not end
+            self.log.exception("zk: reply handler failed")  # the session
 
     # -- request plumbing --
 
-    @ACCOUNT.spans("zk")
     def _send(self, xid: int, opcode: int, body: bytes) -> None:
-        if self._writer is None:
+        """Queue one request's frame for this loop turn's write."""
+        if self._wire is None:
             raise ConnectionError("zk: not connected")
-        self._writer.write(jute.frame(jute.i32(xid) + jute.i32(opcode)
-                                      + body))
+        self._out.append(_REQ_HDR.pack(len(body) + 8, xid, opcode) + body)
+        if self._flush_handle is None:
+            self._flush_handle = self._loop.call_soon(self._flush)
+
+    @ACCOUNT.spans("zk")
+    def _flush(self) -> None:
+        """Write the frames queued during the last loop turn at once."""
+        self._flush_handle = None
+        out, self._out = self._out, []
+        if not out or self._wire is None:
+            return
+        self._wire.transport.write(b"".join(out))
+        if self.m_batches:
+            self.m_batches["send"].inc()
+            self.m_frames["send"].inc(len(out))
+
+    def _request(self, opcode: int, body: bytes, cb: Callable) -> None:
+        """Send one request, or queue it behind the window; ``cb(err,
+        buf)`` gets its reply, or ``CONNECTION_LOSS`` (buf None) when
+        the session is lost first or there is none."""
+        if self._wire is None:
+            cb(CONNECTION_LOSS, None)
+        elif self._queued or len(self._pending) >= MAX_IN_FLIGHT:
+            self._queued.append((opcode, body, cb))
+        else:
+            self._issue(opcode, body, cb)
+
+    def _issue(self, opcode: int, body: bytes, cb: Callable) -> None:
+        self._xid += 1
+        xid = self._xid
+        self._pending[xid] = cb
+        if self.m_requests is not None:
+            self.m_requests.inc()
+        self._send(xid, opcode, body)
 
     async def _call(self, opcode: int, body: bytes):
-        async with self._window:
-            self._xid += 1
-            xid = self._xid
-            fut = asyncio.get_running_loop().create_future()
-            self._pending[xid] = fut
-            if self.m_requests is not None:
-                self.m_requests.inc()
-            self._send(xid, opcode, body)
-            return await fut
+        fut = asyncio.get_running_loop().create_future()
+        self._request(opcode, body, partial(_settle, fut))
+        err, buf = await fut
+        if err == CONNECTION_LOSS:
+            raise ConnectionError("zk: disconnected")
+        return err, buf
 
-    # -- public reads (used by the sync machinery and tests) --
+    # -- public reads (used by tools and tests) --
 
     async def get_children(self, path: str,
                            watch: bool = False) -> Optional[List[str]]:
@@ -464,8 +660,7 @@ class ZKClient(SessionStateMixin, StoreClient):
             return None
         if err != Err.OK:
             raise ConnectionError(f"zk: getChildren({path}) err {err}")
-        n = buf.i32()
-        return sorted(buf.string() for _ in range(max(0, n)))
+        return _read_children(buf)
 
     async def get_data(self, path: str,
                        watch: bool = False) -> Optional[bytes]:
@@ -479,8 +674,7 @@ class ZKClient(SessionStateMixin, StoreClient):
 
     async def get_data2(self, path: str, watch: bool = False):
         """getData returning ``(data, stat_dict)`` instead of discarding
-        the trailing Stat — its ``numChildren`` is how the shared-watch
-        sync learns directory-ness without a getChildren round trip.
+        the trailing Stat, for tools and tests that want to see it.
         None when the node does not exist."""
         err, buf = await self._call(OpCode.GETDATA,
                                     jute.string(path) + jute.boolean(watch))
@@ -528,54 +722,50 @@ class ZKClient(SessionStateMixin, StoreClient):
         if data and await self.get_data(path) != data:
             await self.set_data(path, data)
 
-    # -- watch/sync machinery --
+    # -- watch/sync machinery: fetch chains of reply callbacks --
+
+    def _fetch(self, opcode: int, path: str, cb: Callable) -> None:
+        """One watched read of a fetch chain, counted by ``syncing()``
+        until ``cb`` has handled its reply (and so issued the chain's
+        next read, if any)."""
+        self._fetches += 1
+        self._request(opcode, jute.string(path) + jute.boolean(True),
+                      partial(self._fetched, cb))
+
+    def _fetched(self, cb: Callable, err: int, buf) -> None:
+        try:
+            cb(err, buf)
+        finally:
+            self._fetches -= 1
 
     def _schedule_sync(self, path: str, event: str) -> None:
+        """Fetch current state with a fresh watch and emit it."""
         if not self._connected:
             return  # the session callback will rebind + resync everything
-        task = _zk_task(self._sync(path, event))
-        self._tasks.append(task)
-        task.add_done_callback(self._tasks.remove)
-
-    async def _sync(self, path: str, event: str) -> None:
-        """Fetch current state with a fresh watch and emit it."""
         w = self._watchers.get(path)
         if w is None or not w.has_listeners:
             return
-        try:
-            if event == "children":
-                kids = await self.get_children(path, watch=True)
-                if kids is None:
-                    await self._arm_exists_watch(path)
-                    return
-                w.emit("children", kids)
-            elif event == "data":
-                data = await self.get_data(path, watch=True)
-                if data is None:
-                    await self._arm_exists_watch(path)
-                    return
-                w.emit("data", data)
-        except (ConnectionError, asyncio.CancelledError):
-            pass  # reconnect path will resync
+        if event == "children":
+            self._fetch(OpCode.GETCHILDREN2, path,
+                        partial(self._synced, path, w, event))
+        elif event == "data":
+            self._fetch(OpCode.GETDATA, path,
+                        partial(self._synced, path, w, event))
+
+    def _synced(self, path: str, w: _ZKWatcher, event: str, err: int,
+                buf) -> None:
+        if err == Err.NONODE:
+            self._arm_exists_watch(path)
+        elif err == Err.OK:
+            w.emit(event, _read_children(buf) if event == "children"
+                   else buf.buffer() or b"")
+        # anything else (a lost session): the reconnect path resyncs
 
     # -- shared-watch sync (mirror-bound paths, no per-path watcher) --
 
     def _schedule_shared(self, path: str, want: str) -> None:
-        if not self._connected or self._shared_nodes is None:
-            return  # the session callback will rebind + resync everything
-        task = _zk_task(self._sync_shared(path, want))
-        self._tasks.append(task)
-        task.add_done_callback(self._tasks.remove)
-
-    def _shared_node(self, path: str):
-        nodes = self._shared_nodes
-        if nodes is None:
-            return None
-        return nodes.get(self._path_domain(path))
-
-    async def _sync_shared(self, path: str, want: str) -> None:
         """Fetch current state with fresh watches and deliver it to the
-        mirror node the path maps to (dropped if it was unbound since).
+        mirror node the path maps to (dropped if it was unbound).
 
         ``bind`` is the full pass: one watched getData whose Stat
         decides whether a watched getChildren follows — only for nodes
@@ -583,55 +773,73 @@ class ZKClient(SessionStateMixin, StoreClient):
         (dict-shaped, e.g. a service) and so may grow children later.
         Host leaves — the million-name bulk — stop at the data watch.
         """
+        if not self._connected or self._shared_nodes is None:
+            return  # the session callback will rebind + resync everything
         node = self._shared_node(path)
         if node is None:
             return
-        try:
-            if want == "children":
-                kids = await self.get_children(path, watch=True)
-                if kids is None:
-                    await self._arm_exists_watch(path)
-                    return
-                _mirror_apply(node, node.on_children_changed, kids)
-                return
-            res = await self.get_data2(path, watch=True)
-            if res is None:
-                await self._arm_exists_watch(path)
-                return
-            data, stat = res
-            _mirror_apply(node, node.on_data_changed, data)
-            # Children watch for every node EXCEPT host-record leaves
-            # (compact tuples — the ~30:1 bulk of a production zone).
-            # Structural nodes (no record: the mirror root and interior
-            # path components) and container records (dict-shaped, e.g.
-            # services) may grow children at any time, so they keep the
-            # watch even while childless; a host leaf that somehow has
-            # children is caught by the Stat.  On a plain data touch
-            # the Stat doubles as a heal: children that appeared while
-            # a node was watch-less get picked up here.
-            if stat["numChildren"] > 0 or type(node.rec) is not tuple:
-                kids = await self.get_children(path, watch=True)
-                if kids is not None:
-                    _mirror_apply(node, node.on_children_changed, kids)
-        except (ConnectionError, asyncio.CancelledError):
-            pass  # reconnect path will resync
+        if want == "children":
+            self._fetch(OpCode.GETCHILDREN2, path,
+                        partial(self._shared_children, path, node, True))
+        else:
+            self._fetch(OpCode.GETDATA, path,
+                        partial(self._shared_data, path, node))
 
-    async def _arm_exists_watch(self, path: str) -> None:
+    def _shared_node(self, path: str):
+        nodes = self._shared_nodes
+        if nodes is None:
+            return None
+        return nodes.get(self._path_domain(path))
+
+    def _shared_data(self, path: str, node, err: int, buf) -> None:
+        if err == Err.NONODE:
+            self._arm_exists_watch(path)
+            return
+        if err != Err.OK:
+            return  # the reconnect path will resync
+        data = buf.buffer() or b""
+        num_children = jute.stat_num_children(buf)
+        _mirror_apply(node, node.on_data_changed, data)
+        # Children watch for every node EXCEPT host-record leaves
+        # (compact tuples — the ~30:1 bulk of a production zone).
+        # Structural nodes (no record: the mirror root and interior
+        # path components) and container records (dict-shaped, e.g.
+        # services) may grow children at any time, so they keep the
+        # watch even while childless; a host leaf that somehow has
+        # children is caught by the Stat.  On a plain data touch
+        # the Stat doubles as a heal: children that appeared while
+        # a node was watch-less get picked up here.
+        if num_children > 0 or type(node.rec) is not tuple:
+            self._fetch(OpCode.GETCHILDREN2, path,
+                        partial(self._shared_children, path, node, False))
+
+    def _shared_children(self, path: str, node, arm: bool, err: int,
+                         buf) -> None:
+        if err == Err.NONODE:
+            if arm:
+                self._arm_exists_watch(path)
+        elif err == Err.OK:
+            _mirror_apply(node, node.on_children_changed,
+                          _read_children(buf))
+
+    def _arm_exists_watch(self, path: str) -> None:
         if path in self._exists_watch:
             return
         self._exists_watch.add(path)
-        try:
-            if await self.exists(path, watch=True):
-                # created between the NONODE and the exists call
-                self._exists_watch.discard(path)
-                self._resync_created(path)
-        except (ConnectionError, asyncio.CancelledError):
+        self._fetch(OpCode.EXISTS, path, partial(self._exists_armed, path))
+
+    def _exists_armed(self, path: str, err: int, buf) -> None:
+        if err == Err.OK:
+            # created between the NONODE and the exists call
+            self._exists_watch.discard(path)
+            self._resync_created(path)
+        elif err == CONNECTION_LOSS:
             self._exists_watch.discard(path)
 
     def _resync_created(self, path: str) -> None:
-        """A watched path (re)appeared: schedule the full fetch through
-        whichever binding mode covers it.  Both schedules are cheap
-        no-op tasks when the path has no listener of that kind."""
+        """A watched path (re)appeared: fetch it through whichever
+        binding mode covers it (each does nothing when the path has no
+        listener of its kind)."""
         self._schedule_sync(path, "children")
         self._schedule_sync(path, "data")
         self._schedule_shared(path, "bind")
@@ -658,6 +866,4 @@ class ZKClient(SessionStateMixin, StoreClient):
                       and self._watchers[path].has_listeners)
                      or self._shared_node(path) is not None)
             if wants:
-                task = _zk_task(self._arm_exists_watch(path))
-                self._tasks.append(task)
-                task.add_done_callback(self._tasks.remove)
+                self._arm_exists_watch(path)

@@ -284,7 +284,7 @@ class ZKTestServer:
                 self.state.data_watches.setdefault(path, set()).add(session.id)
             # numChildren must be real: the shared-watch client decides
             # from this stat whether the node is a directory that needs
-            # its own children watch (zk_client._sync_shared)
+            # its own children watch (zk_client._shared_data)
             return Err.OK, (jute.buffer(node.data)
                             + jute.pack_stat(version=node.version,
                                              data_length=len(node.data),

@@ -24,6 +24,12 @@ zk_testserver}`` against ``binder_tpu.store``'s.
 - The port's ``connecting()``, which the shard supervisor's boot hold
   reads: true for exactly the first connection attempt, whether it
   reaches a session or is refused.
+- The port's request pipeline: the window bounds requests in flight; a
+  20,000-name walk ends whole with ``syncing()`` true until then and
+  batches its frames; a walk cut by dropped connections rebuilds whole
+  with nothing left outstanding; a silent server is a dead peer within
+  the session timeout; a watch event between two replies in one chunk
+  keeps its place, and one right after the handshake is not lost.
 """
 import asyncio
 import json
@@ -80,6 +86,7 @@ def test_jute_primitives_byte_identical():
             [rng.randint(-2**63, 2**63 - 1)]
         packed = port_jute.pack_stat(*stat)
         assert packed == ref_jute.pack_stat(*stat)
+        assert port_jute.stat_num_children(port_jute.Buf(packed)) == stat[9]
         # each package decodes the other's bytes to the same values
         for enc, dec in ((port_jute, ref_jute), (ref_jute, port_jute)):
             buf = dec.Buf(enc.frame(wire)[4:] + packed)
@@ -570,3 +577,263 @@ def test_requests_in_flight_are_bounded():
     assert sent == sorted(sent)
     assert got == [host(f"10.0.0.{k % 40}")
                    for k in range(3 * port_zk.MAX_IN_FLIGHT)]
+
+
+# -- the port's request pipeline --------------------------------------
+
+
+def wire_counts(collector):
+    """``{(family, dir): value}`` of the client's wire counters."""
+    return {(k, d): collector.counter(f"binder_zk_wire_{k}").value(
+        {"dir": d}) for k in ("batches", "frames") for d in ("send", "recv")}
+
+
+def loaded_server(tree):
+    server = port_srv.ZKTestServer()
+    server.load(creation_order(tree))
+    return server
+
+
+def holds_tree(cache, tree):
+    """Every znode of ``tree`` mirrored with its record (None for data
+    that is not JSON)."""
+    for path, data in tree.items():
+        node = cache.nodes.get(port_zk.ZKClient._path_domain(path))
+        try:
+            rec = json.loads(data)
+        except ValueError:
+            rec = None
+        if node is None or node.data != rec:
+            return False
+    return True
+
+
+def test_a_shared_walk_holds_every_node_and_batches_its_frames():
+    """A 20,000-name walk in shared mode: the mirror ends holding every
+    node with its record, ``syncing()`` stays true until then, and the
+    frames of a loop turn leave in one write."""
+    from binder_torch.metrics.collector import MetricsCollector
+    tree = seeded_tree(seed=11, hosts=20000)
+
+    async def run():
+        server = loaded_server(tree)
+        await server.start()
+        collector = MetricsCollector()
+        c = port_zk.ZKClient(address="127.0.0.1", port=server.port,
+                             collector=collector)
+        cache = PortCache(c, DOMAIN)
+        early_ends = 0
+        c.start()
+        while not (c.is_connected() and cache.synced()):
+            if c.is_connected() and not c.syncing() \
+                    and not holds_tree(cache, tree):
+                early_ends += 1
+            await asyncio.sleep(0)
+        out = (early_ends, holds_tree(cache, tree), len(cache.nodes),
+               wire_counts(collector),
+               collector.counter("binder_zk_requests").value(),
+               dict(c._pending), len(c._queued))
+        c.close()
+        await server.stop()
+        return out
+
+    early_ends, whole, names, wire, requests, pending, queued = \
+        asyncio.run(run())
+    assert early_ends == 0
+    assert whole and names == len(tree) + 9
+    assert pending == {} and queued == 0
+    # every request went out, and every reply came back, in batches
+    assert wire[("frames", "send")] == requests > 20000
+    assert wire[("frames", "recv")] == requests
+    assert wire[("frames", "send")] / wire[("batches", "send")] > 10
+
+
+def test_a_walk_cut_by_dropped_connections_rebuilds_whole(fast_reconnect):
+    """The server drops its connections mid-walk: every request in
+    flight or queued is answered as lost, and the reconnect's rebuild
+    ends with the same whole mirror and nothing left outstanding."""
+    tree = seeded_tree(seed=12, hosts=5000)
+
+    async def run():
+        server = loaded_server(tree)
+        await server.start()
+        c = port_zk.ZKClient(address="127.0.0.1", port=server.port,
+                             session_timeout_ms=5000)
+        cache = PortCache(c, DOMAIN)
+        c.start()
+        while len(cache.nodes) < 1000:
+            await asyncio.sleep(0)
+        cut = (len(c._pending), len(c._queued), c.syncing())
+        server.drop_connections()
+        assert await wait_for(lambda: not c.is_connected())
+        lost = (dict(c._pending), len(c._queued), c.syncing())
+        assert await wait_for(lambda: c.is_connected() and cache.synced())
+        out = (cut, lost, holds_tree(cache, tree), len(cache.nodes),
+               dict(c._pending), len(c._queued), c._fetches,
+               server.dropped_conns)
+        c.close()
+        await server.stop()
+        return out
+
+    cut, lost, whole, names, pending, queued, fetches, dropped = \
+        asyncio.run(run())
+    assert dropped == 1
+    # the walk was cut with a full window and more waiting behind it
+    assert cut[0] == port_zk.MAX_IN_FLIGHT and cut[1] > 0 and cut[2]
+    assert lost == ({}, 0, False)
+    assert whole and names == len(tree) + 9
+    assert (pending, queued, fetches) == ({}, 0, 0)
+
+
+class ScriptedServer:
+    """A ZooKeeper peer that answers each handshake with session 0x99
+    and then runs ``script(reader, writer)``; counts its connections."""
+
+    def __init__(self, script):
+        self.script = script
+        self.conns = 0
+
+    async def start(self):
+        self.server = await asyncio.start_server(self._conn,
+                                                 "127.0.0.1", 0)
+        self.port = self.server.sockets[0].getsockname()[1]
+
+    async def stop(self):
+        self.server.close()
+
+    async def _conn(self, reader, writer):
+        self.conns += 1
+        try:
+            (n,) = struct.unpack(">i", await reader.readexactly(4))
+            req = port_jute.Buf(await reader.readexactly(n))
+            req.i32()
+            req.i64()
+            timeout = req.i32()
+            writer.write(port_jute.frame(
+                port_jute.i32(0) + port_jute.i32(timeout)
+                + port_jute.i64(0x99) + port_jute.buffer(b"\x01" * 16)
+                + port_jute.boolean(False)))
+            await self.script(reader, writer)
+        except (asyncio.IncompleteReadError, ConnectionError):
+            pass
+        finally:
+            writer.close()
+
+
+async def read_xid(reader):
+    """The xid of the next request frame."""
+    (n,) = struct.unpack(">i", await reader.readexactly(4))
+    return port_jute.Buf(await reader.readexactly(n)).i32()
+
+
+def test_a_silent_server_is_a_dead_peer(fast_reconnect):
+    """A server that stops answering (pings included) ends the session
+    with ``ConnectionError`` once a session timeout passes without a
+    frame, and the client reconnects."""
+    async def silent(reader, writer):
+        while await reader.read(65536):
+            pass
+
+    async def run():
+        server = ScriptedServer(silent)
+        await server.start()
+        c = port_zk.ZKClient(address="127.0.0.1", port=server.port,
+                             session_timeout_ms=1000)
+        c.start()
+        assert await wait_for(c.is_connected)
+        t0 = asyncio.get_running_loop().time()
+        with pytest.raises(ConnectionError):
+            await asyncio.wait_for(c.get_data("/com/foo/web"), 5.0)
+        waited = asyncio.get_running_loop().time() - t0
+        state = c.session_state()
+        assert await wait_for(lambda: server.conns == 2 and c.is_connected())
+        out = (waited, state, c.session_state(), c._session_id)
+        c.close()
+        await server.stop()
+        return out
+
+    waited, state, after, sid = asyncio.run(run())
+    # the negotiated timeout is 1 s: no sooner, and not much later
+    assert 0.9 <= waited <= 2.0
+    assert state == "degraded" and after == "connected" and sid == 0x99
+
+
+def test_a_watch_event_between_two_replies_keeps_its_place():
+    """Two replies with a watch event between them, in one chunk: the
+    client hands them over in wire order."""
+    from binder_torch.metrics.collector import MetricsCollector
+
+    async def answer_both(reader, writer):
+        xa, xb = [await read_xid(reader) for _ in range(2)]
+        reply = (lambda xid, data: port_jute.frame(
+            port_jute.i32(xid) + port_jute.i64(5) + port_jute.i32(0)
+            + port_jute.buffer(data) + port_jute.pack_stat(*[0] * 11)))
+        event = port_jute.frame(
+            port_jute.i32(port_jute.XID_WATCHER_EVENT) + port_jute.i64(5)
+            + port_jute.i32(0)
+            + port_jute.i32(port_jute.EventType.DATA_CHANGED)
+            + port_jute.i32(port_jute.KeeperState.SYNC_CONNECTED)
+            + port_jute.string("/com/foo/a"))
+        writer.write(reply(xa, b"A") + event + reply(xb, b"B"))
+        await writer.drain()
+        while await reader.read(65536):
+            pass
+
+    async def run():
+        server = ScriptedServer(answer_both)
+        await server.start()
+        collector = MetricsCollector()
+        c = port_zk.ZKClient(address="127.0.0.1", port=server.port,
+                             collector=collector)
+        c.start()
+        assert await wait_for(c.is_connected)
+        seen = []
+        c._on_watch_event = lambda etype, path: seen.append(("event", path))
+        for path in ("/com/foo/a", "/com/foo/b"):
+            c._request(port_jute.OpCode.GETDATA,
+                       port_jute.string(path) + port_jute.boolean(True),
+                       lambda err, buf: seen.append(("reply",
+                                                     buf.buffer())))
+        assert await wait_for(lambda: len(seen) == 3)
+        wire = wire_counts(collector)
+        c.close()
+        await server.stop()
+        return seen, wire
+
+    seen, wire = asyncio.run(run())
+    assert seen == [("reply", b"A"), ("event", "/com/foo/a"),
+                    ("reply", b"B")]
+    # the two requests left in one write; the three frames came in one
+    # chunk after the handshake's
+    assert wire[("batches", "send")] == 1 and wire[("frames", "send")] == 2
+    assert wire[("frames", "recv")] == 3 and wire[("batches", "recv")] == 1
+
+
+def test_a_watch_event_right_after_the_handshake_is_not_lost():
+    """A frame that follows the handshake's reply before the session has
+    taken the connection over (a resumed session's watch firing) is
+    dispatched once the session starts."""
+    async def fire_at_once(reader, writer):
+        writer.write(port_jute.frame(
+            port_jute.i32(port_jute.XID_WATCHER_EVENT) + port_jute.i64(5)
+            + port_jute.i32(0)
+            + port_jute.i32(port_jute.EventType.DATA_CHANGED)
+            + port_jute.i32(port_jute.KeeperState.SYNC_CONNECTED)
+            + port_jute.string("/com/foo/early")))
+        while await reader.read(65536):
+            pass
+
+    async def run():
+        server = ScriptedServer(fire_at_once)
+        await server.start()
+        c = port_zk.ZKClient(address="127.0.0.1", port=server.port)
+        seen = []
+        c._on_watch_event = lambda etype, path: seen.append((etype, path))
+        c.start()
+        assert await wait_for(lambda: seen)
+        c.close()
+        await server.stop()
+        return seen
+
+    assert asyncio.run(run()) == [(port_jute.EventType.DATA_CHANGED,
+                                   "/com/foo/early")]
